@@ -1,0 +1,268 @@
+"""tpu_se_torch.infer against tpu_se.infer on the CPU, and the port's CLI.
+
+Both packages read the same ``.wts``/``.norm`` (written with the
+``tpu_se.io`` writers from a seeded model and synthetic waves).
+Tolerances: int16 waves within 1 LSB (float32 sums in another order can
+flip a truncation); enhanced LPS within atol 1e-3 (the port's LPS sums in
+float64, JAX's in float32, ~2e-4 apart on near-empty bins, then the FFN
+and blend); info.txt SegSNR/LSD within 1e-3.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_se.infer import Enhancer as JaxEnhancer
+from tpu_se.infer import decode_files as jax_decode_files
+from tpu_se.io import read_wav, write_norm, write_wav, write_wts
+from tpu_se_torch.cli.main import build_parser
+from tpu_se_torch.cli.main import main as cli_main
+from tpu_se_torch.dsp.analysis import rate_config, wav_to_lps
+from tpu_se_torch.infer import Enhancer, decode_files
+from tpu_se_torch.infer.decode import trunc_int16
+from tpu_se_torch.models import init_params
+from tpu_se_torch.ops import lps_kernel
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LPS_ATOL = 1e-3
+INFO_ATOL = 1e-3
+LENGTHS = (9000, 12345, 6000)
+BLENDS = [0.0, 0.4, "auto"]
+
+
+def _lsb(a, b):
+    assert len(a) == len(b)
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return int(d.max()) if d.size else 0
+
+
+def _waves(rate, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, n in enumerate(LENGTHS):
+        t = np.arange(n) / rate
+        clean = (2000 * np.sin(2 * np.pi * (150 + 40 * i) * t)
+                 + 900 * np.sin(2 * np.pi * 700 * t))
+        out.append((clean, clean + 500 * rng.standard_normal(n)))
+    return [(c.astype(np.int16), n.astype(np.int16)) for c, n in out]
+
+
+def _model(tmp, rate, seed):
+    bins = rate_config(rate)[2] // 2 + 1
+    wts = os.path.join(tmp, f"m{rate}.wts")
+    write_wts(wts, init_params(seed, (7 * bins, 64, 64, bins)))
+    pairs = _waves(rate, seed)
+    lps = np.concatenate([wav_to_lps(n, sample_rate=rate, device="cpu")
+                          for _, n in pairs])
+    norm = os.path.join(tmp, f"m{rate}.norm")
+    write_norm(norm, lps.mean(axis=0), 1.0 / lps.std(axis=0))
+    return wts, norm, pairs
+
+
+@pytest.fixture(scope="module")
+def fx(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("decode"))
+    wts, norm, pairs = _model(tmp, 16000, seed=7)
+    noisy_paths, clean_paths = [], []
+    for i, (clean, noisy) in enumerate(pairs):
+        for kind, wave, paths in (("clean", clean, clean_paths),
+                                  ("noisy", noisy, noisy_paths)):
+            path = os.path.join(tmp, f"u{i}_{kind}.wav")
+            write_wav(path, wave, 16000)
+            paths.append(path)
+    return {"tmp": tmp, "wts": wts, "norm": norm,
+            "noisy": [n for _, n in pairs], "noisy_paths": noisy_paths,
+            "clean_paths": clean_paths}
+
+
+def _pair(fx, **kw):
+    return (Enhancer(fx["wts"], fx["norm"], device="cpu", **kw),
+            JaxEnhancer(fx["wts"], fx["norm"], **kw))
+
+
+def _check_triple(got, want):
+    wave, recon, enh = got
+    assert wave.dtype == np.int16
+    assert _lsb(wave, want[0]) <= 1
+    assert recon.shape == want[1].shape
+    np.testing.assert_allclose(enh, want[2], rtol=0, atol=LPS_ATOL)
+
+
+@pytest.mark.parametrize("blend", BLENDS)
+def test_enhance_matches_jax(fx, blend):
+    ours, theirs = _pair(fx, blend=blend)
+    for wave in fx["noisy"]:
+        got = ours.enhance(wave)
+        t = len(wave) // 256 - 1
+        assert got[0].shape == (t * 256 + 256,)
+        assert got[2].shape == (t, 257)
+        _check_triple(got, theirs.enhance(wave))
+
+
+@pytest.mark.parametrize("blend", BLENDS)
+def test_enhance_batch_matches_jax(fx, blend):
+    ours, theirs = _pair(fx, blend=blend)
+    waves = fx["noisy"] + [fx["noisy"][0][:200]]     # last: no full frame
+    got = ours.enhance_batch(waves)
+    want = theirs.enhance_batch(waves)
+    assert len(got) == len(want) == len(waves)
+    assert got[-1][0].shape == want[-1][0].shape == (0,)
+    for g, w in zip(got, want):
+        _check_triple(g, w)
+    assert ours.enhance_batch([]) == theirs.enhance_batch([]) == []
+    for g, wave in zip(got, fx["noisy"]):           # batch == single
+        assert _lsb(g[0], ours.enhance(wave)[0]) <= 1
+
+
+@pytest.mark.parametrize("blend", BLENDS)
+def test_enhance_batch_waves_matches_jax(fx, blend):
+    ours, theirs = _pair(fx, blend=blend)
+    got = ours.enhance_batch_waves(fx["noisy"] + [fx["noisy"][0][:200]])
+    want = theirs.enhance_batch_waves(fx["noisy"] + [fx["noisy"][0][:200]])
+    assert len(got[-1]) == len(want[-1]) == 0
+    for g, w in zip(got, want):
+        assert g.dtype == np.int16
+        assert _lsb(g, w) <= 1
+
+
+@pytest.mark.parametrize("kw", [
+    {"smooth_strength": "auto"},
+    {"smooth": True},
+    {"postprocess": True},
+    {"blend": "auto", "smooth_strength": "auto", "postprocess": True},
+], ids=["smooth-auto", "smooth", "postprocess", "quality+postprocess"])
+def test_staged_options_match_jax(fx, kw):
+    ours, theirs = _pair(fx, **kw)
+    for wave in fx["noisy"][:2]:
+        _check_triple(ours.enhance(wave), theirs.enhance(wave))
+    got = ours.enhance_batch_waves(fx["noisy"][:2])
+    want = theirs.enhance_batch_waves(fx["noisy"][:2])
+    for g, w in zip(got, want):
+        assert _lsb(g, w) <= 1
+
+
+def test_enhance_lps_matches_jax(fx):
+    ours, theirs = _pair(fx, blend="auto")
+    lps = wav_to_lps(fx["noisy"][1], device="cpu")
+    np.testing.assert_allclose(ours.enhance_lps(lps), theirs.enhance_lps(lps),
+                               rtol=0, atol=LPS_ATOL)
+
+
+@pytest.mark.parametrize("rate", [8000, 11025])
+def test_enhance_low_rates_match_jax(tmp_path, rate):
+    """256-point framings: 129 bins; 11 kHz is the 3-hop OLA."""
+    wts, norm, pairs = _model(str(tmp_path), rate, seed=3)
+    ours = Enhancer(wts, norm, device="cpu", sample_rate=rate)
+    theirs = JaxEnhancer(wts, norm, sample_rate=rate)
+    _, noisy = pairs[1]
+    _check_triple(ours.enhance(noisy), theirs.enhance(noisy))
+    got = ours.enhance_batch([n for _, n in pairs])
+    want = theirs.enhance_batch([n for _, n in pairs])
+    for g, w in zip(got, want):
+        _check_triple(g, w)
+
+
+def _info(path):
+    lines = open(path).read().split("\n")
+    return float(lines[1]), float(lines[3])
+
+
+@pytest.mark.parametrize("batch_size,kw", [
+    (0, {}), (4, {}), (0, {"blend": "auto", "smooth_strength": "auto"}),
+], ids=["single", "batch4", "quality"])
+def test_decode_files_matches_jax(fx, tmp_path, batch_size, kw):
+    args = (fx["wts"], fx["norm"], fx["noisy_paths"])
+    got = decode_files(*args, str(tmp_path / "torch"), fx["clean_paths"],
+                       log=lambda s: None, noisy_info=True,
+                       batch_size=batch_size, device="cpu", **kw)
+    want = jax_decode_files(*args, str(tmp_path / "jax"), fx["clean_paths"],
+                            log=lambda s: None, noisy_info=True,
+                            batch_size=batch_size, **kw)
+    for g, w in zip(got, want):
+        for key in ("segsnr", "segsnr_noisy", "lsd", "lsd_noisy"):
+            assert np.isfinite(g[key])
+            assert abs(g[key] - w[key]) <= INFO_ATOL, key
+        assert _lsb(read_wav(g["out"])[0], read_wav(w["out"])[0]) <= 1
+        stem = os.path.splitext(os.path.basename(g["wav"]))[0]
+        info_g = _info(tmp_path / "torch" / f"{stem}.info.txt")
+        info_w = _info(tmp_path / "jax" / f"{stem}.info.txt")
+        np.testing.assert_allclose(info_g, info_w, rtol=0, atol=INFO_ATOL)
+        ni = os.path.basename(g["wav"]) + ".info"
+        assert _info(tmp_path / "torch" / ni) == _info(tmp_path / "jax" / ni)
+
+
+@pytest.mark.parametrize("rate", [8000, 11025])
+def test_decode_files_low_rate_metrics(tmp_path, rate):
+    """Metrics use the decode's own framing.  ``tpu_se.infer.decode_files``
+    drops ``sample_rate`` here and fails on 256-point frames, so the port
+    is held to ``tpu_se.dsp.metrics`` called with the rate."""
+    from tpu_se.dsp.metrics import segsnr_lsd_pair
+
+    wts, norm, pairs = _model(str(tmp_path), rate, seed=5)
+    clean, noisy = pairs[0]
+    write_wav(tmp_path / "c.wav", clean, rate)
+    write_wav(tmp_path / "n.wav", noisy, rate)
+    got = decode_files(wts, norm, [tmp_path / "n.wav"], str(tmp_path / "o"),
+                       [tmp_path / "c.wav"], log=lambda s: None,
+                       sample_rate=rate, device="cpu")[0]
+    _, recon, enh = JaxEnhancer(wts, norm, sample_rate=rate).enhance(noisy)
+    power = np.where(enh < -50.0, np.exp(-50.0), np.exp(enh))
+    want = segsnr_lsd_pair(clean, noisy, recon, power, rate)
+    for key, val in want.items():
+        assert np.isfinite(got[key])
+        assert abs(got[key] - val) <= INFO_ATOL, key
+
+
+def test_cli_decode_subprocess_on_cpu(fx, tmp_path):
+    scp = tmp_path / "noisy.scp"
+    scp.write_text("\n".join(fx["noisy_paths"]) + "\n")
+    out = tmp_path / "out"
+    r = subprocess.run(
+        [sys.executable, "-m", "tpu_se_torch", "decode", "--scp", str(scp),
+         "--wts", fx["wts"], "--norm", fx["norm"], "--out-dir", str(out),
+         "--device", "cpu", "--batch", "2", "--blend", "auto"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    ours = Enhancer(fx["wts"], fx["norm"], device="cpu", blend="auto")
+    for path, wave in zip(fx["noisy_paths"], fx["noisy"]):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        got, sr = read_wav(out / f"{stem}_enhanced.wav")
+        assert sr == 16000
+        assert _lsb(got, ours.enhance(wave)[0]) <= 1
+
+
+def test_cuda_requests_raise_without_gpu(fx, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Enhancer(fx["wts"], fx["norm"], device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli_main(["decode", fx["noisy_paths"][0], "--wts", fx["wts"],
+                  "--norm", fx["norm"], "--out-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+def test_cpu_decode_never_launches_the_kernel(fx):
+    before = lps_kernel.launches
+    ours = Enhancer(fx["wts"], fx["norm"], device="cpu")
+    ours.enhance(fx["noisy"][0])
+    ours.enhance_batch_waves(fx["noisy"])
+    assert lps_kernel.launches == before == 0
+
+
+@pytest.mark.parametrize("flag", [["--stream", "1000"], ["--mesh-data", "2"]])
+def test_cli_rejects_unported_options(flag):
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["decode", "a.wav", "--wts", "m.wts",
+                                   "--norm", "m.norm", *flag])
+
+
+def test_trunc_int16_wraps_like_numpy():
+    x = np.array([0.9, -0.9, 1.5, -1.5, 32767.9, -32768.9, 40000.7,
+                  -40000.7, 70000.0, -70000.0], np.float32)
+    np.testing.assert_array_equal(trunc_int16(torch.from_numpy(x)).numpy(),
+                                  np.trunc(x).astype(np.int16))

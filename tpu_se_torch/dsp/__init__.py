@@ -1,0 +1,16 @@
+"""DSP layer: LPS analysis, noisy-phase overlap-add synthesis, metrics."""
+
+from tpu_se_torch.dsp.analysis import (
+    FRAME_LENGTH, FRAME_SHIFT, FFT_LENGTH, NUM_BINS, LOG_FLOOR,
+    RATE_CONFIGS, rate_config, hamming_window, dft_basis, num_frames,
+    frame_signal, lps_from_frames, wav_to_lps,
+)
+from tpu_se_torch.dsp.synthesis import reconstruct
+from tpu_se_torch.dsp.metrics import segsnr, lsd, power_spectra
+
+__all__ = [
+    "FRAME_LENGTH", "FRAME_SHIFT", "FFT_LENGTH", "NUM_BINS", "LOG_FLOOR",
+    "RATE_CONFIGS", "rate_config", "hamming_window", "dft_basis",
+    "num_frames", "frame_signal", "lps_from_frames", "wav_to_lps",
+    "reconstruct", "segsnr", "lsd", "power_spectra",
+]

@@ -1,0 +1,443 @@
+"""Batch decode: noisy wav -> enhanced wav (+ SegSNR/LSD info).
+
+Port of ``tpu_se/infer/decode.py``, the ``Test_code/decode.m`` pipeline:
+
+    wav -> LPS -> Z-score -> edge-replicated 7-frame splice -> DNN forward
+        -> de-normalize (+ blend) -> exp/2 + noisy phase -> OLA -> int16 wav
+
+Everything between the frames and the OLA waveform runs on one device,
+with the LPS front end in the hand-written kernel on a CUDA device.  A
+batch is padded to its longest utterance and masked by ``n_valid``; eager
+PyTorch needs none of the JAX package's shape buckets, and padded rows
+change nothing (the splice clamps at the last valid frame, the OLA drops
+invalid rows).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from tpu_se_torch.dsp.analysis import (
+    LOG_FLOOR, dft_basis, frame_signal, hamming_window, lps_from_frames,
+    rate_config,
+)
+from tpu_se_torch.dsp.metrics import segsnr_lsd_pair
+from tpu_se_torch.dsp.synthesis import _synth_and_ola, reconstruct
+from tpu_se_torch.io import read_norm, read_wav, read_wts, write_wav
+from tpu_se_torch.models.ffn import FFN, params_from_numpy
+from tpu_se_torch.utils.device import resolve_device
+
+# Adaptive-blend map (tpu_se/infer/decode.py): lam = LMAX *
+# exp(-suppression_dB / TAU), clipped to [0, 0.9], from the utterance's
+# mean suppression (noisy minus enhanced LPS, in dB).
+BLEND_AUTO_LMAX = 0.8
+BLEND_AUTO_TAU_DB = 20.0
+BLEND_AUTO_MAX = 0.9
+_DB_PER_NEPER = 10.0 / math.log(10.0)
+
+
+def _check_smooth_strength(strength, smooth_flag: bool = False):
+    """Resolve a smoothing-strength setting to 0.0 (off), (0, 1], or 'auto'.
+
+    ``strength=None`` defers to the binary ``smooth`` flag (the
+    reference's compile-time SMOOTHPROCESS: on means s=1).  A non-zero
+    strength turns smoothing on by itself; 0 turns it off even when
+    ``smooth_flag`` is set.
+    """
+    if strength is None:
+        return 1.0 if smooth_flag else 0.0
+    if isinstance(strength, str) and strength == "auto":
+        return "auto"
+    try:
+        val = float(strength)
+    except (TypeError, ValueError):
+        raise ValueError(f"smooth_strength must be 'auto' or in [0, 1], "
+                         f"got {strength!r}")
+    if not 0.0 <= val <= 1.0:
+        raise ValueError(f"smooth_strength must be 'auto' or in [0, 1], "
+                         f"got {strength!r}")
+    return val
+
+
+def _check_blend(blend):
+    """Validate a blend setting: 'auto' or a numeric value in [0, 1)."""
+    if isinstance(blend, str) and blend == "auto":
+        return blend
+    try:
+        val = float(blend)
+    except (TypeError, ValueError):
+        raise ValueError(f"blend must be 'auto' or in [0, 1), got {blend!r}")
+    if not 0.0 <= val < 1.0:
+        raise ValueError(f"blend must be 'auto' or in [0, 1), got {blend!r}")
+    return val
+
+
+def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
+                 inv_std: torch.Tensor, n_valid: torch.Tensor,
+                 context: int = 7, blend=0.0) -> torch.Tensor:
+    """Normalized forward over edge-replicated spliced frames, on device.
+
+    ``lps`` [B, T, D] padded, ``n_valid`` [B] true frame counts.  The
+    splice clamps at ``n_valid - 1``, so the last frames replicate the
+    final TRUE frame (``frame_expand.m:19-22``), never a pad row.
+    ``blend`` in [0, 1) moves the enhanced LPS that fraction back toward
+    the noisy LPS (log domain); ``"auto"`` picks the fraction per
+    utterance from the model's mean suppression over its valid rows.
+    """
+    b, t, d = lps.shape
+    normed = (lps - mean) * inv_std
+    half = (context - 1) // 2
+    steps = torch.arange(t, device=lps.device)
+    idx = (steps[:, None]
+           + torch.arange(-half, half + 1, device=lps.device)[None, :])
+    last = (n_valid - 1).clamp(min=0)[:, None, None]
+    idx = torch.minimum(idx.clamp(min=0)[None], last)           # [B, T, C]
+    rows = torch.arange(b, device=lps.device)[:, None, None]
+    x = normed[rows, idx].reshape(b * t, context * d)
+    enh = model(x).reshape(b, t, d) / inv_std + mean
+    if blend == "auto":
+        valid = (steps[None, :] < n_valid[:, None]).to(lps.dtype)[..., None]
+        supp_db = (((lps - enh) * valid).sum(dim=(1, 2))
+                   / (n_valid.clamp(min=1) * d) * _DB_PER_NEPER)
+        lam = (BLEND_AUTO_LMAX
+               * torch.exp(-supp_db.clamp(min=0.0) / BLEND_AUTO_TAU_DB)
+               ).clamp(0.0, BLEND_AUTO_MAX)[:, None, None]
+        enh = (1.0 - lam) * enh + lam * lps
+    elif blend:
+        enh = (1.0 - blend) * enh + blend * lps
+    return enh
+
+
+def _decode_core(model: FFN, frames: torch.Tensor, mean: torch.Tensor,
+                 inv_std: torch.Tensor, n_valid: torch.Tensor,
+                 basis: torch.Tensor, window: torch.Tensor, frame_shift: int,
+                 context: int = 7, blend=0.0):
+    """The whole decode on one device: noisy frames [B, T, len] ->
+    (OLA waveform [B, S], de-windowed recon frames [B, T, len],
+    enhanced LPS [B, T, bins]).  ``basis`` and ``window`` are the
+    analysis matrix and Hamming window, already on the device."""
+    b, t, length = frames.shape
+    lps = lps_from_frames(frames.reshape(b * t, length),
+                          basis=basis).reshape(b, t, -1)
+    enh = _enhance_lps(model, lps, mean, inv_std, n_valid, context, blend)
+    valid = (torch.arange(t, device=frames.device)[None, :]
+             < n_valid[:, None])
+    wave, recon = _synth_and_ola(enh, frames, valid, frame_shift,
+                                 window=window)
+    return wave, recon, enh
+
+
+# smooth_strength="auto": fractional SMOOTHPROCESS gated by the input's
+# temporal impulsiveness (tpu_se/infer/decode.py):
+# s_eff = SM_AUTO_S * clip((D1 - dyn)/(D1 - D0), 0, 1), with dyn the mean
+# |delta mean-frame-dB| of the noisy LPS.
+SM_AUTO_S = 0.5
+SM_AUTO_D0 = 2.0          # full strength at/below this dyn
+SM_AUTO_D1 = 3.0          # zero strength at/above
+
+
+def smooth_dyn_statistic(noisy_lps: np.ndarray) -> float:
+    """The gate statistic: mean |Δ mean-frame-dB| of the noisy LPS."""
+    frame_db = noisy_lps.mean(axis=1) * (10.0 / np.log(10.0))
+    if len(frame_db) < 2:
+        return float(SM_AUTO_D1)      # too short to judge -> smoothing off
+    return float(np.abs(np.diff(frame_db)).mean())
+
+
+def _smooth_auto_strength(noisy_lps: np.ndarray) -> float:
+    dyn = smooth_dyn_statistic(noisy_lps)
+    return SM_AUTO_S * float(np.clip((SM_AUTO_D1 - dyn)
+                                     / (SM_AUTO_D1 - SM_AUTO_D0), 0.0, 1.0))
+
+
+SWITCHPOINT = 36          # LogSpec2Wav.c:76 — low/high band split
+THRESHOLD1 = -2.1         # max suppression, bins 0..36   (:77)
+THRESHOLD2 = -3.43        # max suppression, bins 37..256 (:78)
+NOISE_FRAME_NUM = 10      # leading frames treated as noise (:80)
+SMOOTH_WIN = 1            # running-min half-window (:75)
+
+
+def postprocess_lps(enh_lps: np.ndarray, noisy_lps: np.ndarray) -> np.ndarray:
+    """The vocoder's POSTPROCESS option (``LogSpec2Wav.c:655-679``):
+    floor the enhanced LPS at the noisy LPS plus a per-band threshold,
+    bounding the maximum suppression (~9 dB low bins, ~15 dB high bins)."""
+    floor = noisy_lps + np.where(
+        np.arange(enh_lps.shape[1]) <= SWITCHPOINT, THRESHOLD1, THRESHOLD2)
+    return np.maximum(enh_lps, floor).astype(np.float32)
+
+
+def smooth_power(power: np.ndarray) -> np.ndarray:
+    """The vocoder's SMOOTHPROCESS option (``LogSpec2Wav.c:497-546``):
+    per frequency bin, frames whose power is below the max over the first
+    NOISE_FRAME_NUM frames are replaced with a running min over the
+    +-SMOOTH_WIN neighborhood (of the ORIGINAL values)."""
+    t = power.shape[0]
+    if t <= 2 * SMOOTH_WIN:
+        return power
+    noise_max = power[:NOISE_FRAME_NUM].max(axis=0, keepdims=True)
+    out = power.copy()
+    window_min = power.copy()
+    for off in range(1, SMOOTH_WIN + 1):
+        window_min[off:] = np.minimum(window_min[off:], power[:-off])
+        window_min[:-off] = np.minimum(window_min[:-off], power[off:])
+    region = np.zeros_like(power, dtype=bool)
+    region[SMOOTH_WIN: t - SMOOTH_WIN] = True
+    mask = region & (power < noise_max)
+    out[mask] = window_min[mask]
+    return out
+
+
+def trunc_int16(wave: torch.Tensor) -> torch.Tensor:
+    """float wave -> int16 on its device, as ``np.trunc(x).astype(np.int16)``.
+
+    Goes through int32: a float -> int16 cast out of range is undefined on
+    the GPU, while int32 -> int16 keeps the low 16 bits, which is what
+    numpy's cast gives (a loud output wraps) for |x| < 2^31.
+    """
+    return wave.trunc().to(torch.int32).to(torch.int16)
+
+
+def _exp_floored(lps: np.ndarray) -> np.ndarray:
+    return np.where(lps < LOG_FLOOR, np.exp(LOG_FLOOR), np.exp(lps))
+
+
+class Enhancer:
+    """Loaded model + normalization stats on ``device``, ready to enhance.
+
+    ``device`` is ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+    Quality options as in ``tpu_se.infer.Enhancer``: ``blend`` (fixed or
+    ``"auto"``), ``smooth_strength`` (fixed or ``"auto"``; non-zero implies
+    smoothing, 0 is off, ``smooth=True`` alone is the reference's s=1) and
+    ``postprocess``; smoothing and postprocessing run on the host between
+    the forward pass and synthesis (``LogSpec2Wav.c:497-546,655-679``).
+    """
+
+    def __init__(self, wts_path, norm_path, device="cuda", context: int = 7,
+                 postprocess: bool = False, smooth: bool = False,
+                 smooth_strength=None, sample_rate: int = 16000,
+                 blend=0.0):
+        self.device = resolve_device(device)
+        self.model = params_from_numpy(read_wts(wts_path), self.device)
+        dim = self.model.biases[-1].shape[0]
+        (self.frame_length, self.frame_shift,
+         fft_length) = rate_config(sample_rate)
+        if fft_length // 2 + 1 != dim:
+            raise ValueError(f"model dim {dim} != {fft_length // 2 + 1} "
+                             f"bins at {sample_rate} Hz")
+        self.sample_rate = sample_rate
+        mean, inv_std = read_norm(norm_path, dim)
+        self.mean = torch.from_numpy(mean).to(self.device)
+        self.inv_std = torch.from_numpy(inv_std).to(self.device)
+        self.basis = dft_basis(self.frame_length, self.device)
+        self.window = torch.from_numpy(
+            hamming_window(self.frame_length)).to(self.device)
+        self.context = context
+        self.postprocess = postprocess
+        self.smooth_strength = _check_smooth_strength(smooth_strength,
+                                                      smooth)
+        self.smooth = self.smooth_strength != 0.0
+        self.blend = _check_blend(blend)
+
+    def _tensor(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _decode(self, frames: torch.Tensor, n_valid: torch.Tensor):
+        return _decode_core(self.model, frames, self.mean, self.inv_std,
+                            n_valid, self.basis, self.window,
+                            self.frame_shift, self.context, self.blend)
+
+    @torch.inference_mode()
+    def enhance_lps(self, lps: np.ndarray) -> np.ndarray:
+        """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins]."""
+        n_valid = torch.tensor([lps.shape[0]], device=self.device)
+        out = _enhance_lps(self.model, self._tensor(lps)[None], self.mean,
+                           self.inv_std, n_valid, self.context, self.blend)
+        return out[0].cpu().numpy()
+
+    @torch.inference_mode()
+    def enhance(self, noisy_wave: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """noisy int16 wave -> (enhanced int16 wave, recon frames, enh LPS).
+
+        Without smoothing or postprocessing the whole decode is one device
+        pass; with either, the staged path runs them on the host between
+        the forward pass and synthesis.
+        """
+        if not (self.smooth or self.postprocess):
+            return self._decode_waves([noisy_wave])[0]
+        frames = frame_signal(noisy_wave, self.frame_length,
+                              self.frame_shift)
+        lps = lps_from_frames(self._tensor(frames),
+                              basis=self.basis).cpu().numpy()
+        enh_lps = self.enhance_lps(lps)
+        if self.smooth:
+            power = _exp_floored(enh_lps)
+            s = (_smooth_auto_strength(lps)
+                 if self.smooth_strength == "auto"
+                 else self.smooth_strength)
+            mixed = (1.0 - s) * power + s * smooth_power(power)
+            enh_lps = np.log(mixed).astype(np.float32)
+        if self.postprocess:
+            enh_lps = postprocess_lps(enh_lps, lps)
+        wave, recon = reconstruct(enh_lps, noisy_wave, self.sample_rate,
+                                  device=self.device)
+        return wave, recon, enh_lps
+
+    @torch.inference_mode()
+    def enhance_batch(self, waves: list
+                      ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Enhance B utterances in one device pass, padded to the longest.
+
+        Matches per-utterance ``enhance`` within 1 int16 LSB (batched
+        products may sum in another order).  Smoothing/postprocessing use
+        the staged per-utterance path.
+        """
+        if self.smooth or self.postprocess:
+            return [self.enhance(w) for w in waves]
+        return self._decode_waves(waves)
+
+    def _decode_waves(self, waves: list
+                      ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The fused decode of B waves, padded to the longest utterance;
+        an utterance too short for one frame gives empty outputs."""
+        frames = [frame_signal(w, self.frame_length, self.frame_shift)
+                  for w in waves]
+        ts = [f.shape[0] for f in frames]
+        empty = (np.zeros(0, np.int16),
+                 np.zeros((0, self.frame_length), np.float32),
+                 np.zeros((0, self.frame_length // 2 + 1), np.float32))
+        if max(ts, default=0) == 0:
+            return [empty for _ in waves]
+        frames_b = np.zeros((len(waves), max(ts), self.frame_length),
+                            dtype=np.float32)
+        for i, f in enumerate(frames):
+            frames_b[i, : ts[i]] = f
+        wave_b, recon_b, enh_b = self._decode(
+            self._tensor(frames_b), torch.tensor(ts, device=self.device))
+        wave_b = wave_b.cpu().numpy()
+        recon_b, enh_b = recon_b.cpu().numpy(), enh_b.cpu().numpy()
+        tail = self.frame_length - self.frame_shift
+        return [(np.trunc(wave_b[i, : t * self.frame_shift + tail]
+                          ).astype(np.int16), recon_b[i, :t], enh_b[i, :t])
+                if t else empty for i, t in enumerate(ts)]
+
+    @torch.inference_mode()
+    def decode_waves_tensor(self, waves: torch.Tensor,
+                            n_valid: torch.Tensor) -> torch.Tensor:
+        """Serving fast path on the device: int16 waves [B, (T+1)*shift] and
+        frame counts [B] -> int16 enhanced waves [B, S], framed on the device.
+
+        Framing uses frame_length == 2 * shift (the ETSI 50 %-overlap
+        config, ``Wav2LogSpec_be.c:43,49``): each frame joins two adjacent
+        shift-sized blocks.
+        """
+        w = waves.to(torch.float32)
+        b, s = w.shape
+        blocks = w.reshape(b, s // self.frame_shift, self.frame_shift)
+        frames = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
+        wave, _, _ = self._decode(frames, n_valid)
+        return trunc_int16(wave)
+
+    def enhance_batch_waves(self, waves: list) -> list[np.ndarray]:
+        """B int16 waves -> B enhanced int16 waves (serving fast path).
+
+        int16-only host<->device traffic (``decode_waves_tensor``); waves
+        equal ``enhance_batch``'s.  Needs frame_length == 2 * shift; the
+        other configs and smoothing/postprocessing take the staged path.
+        """
+        shift = self.frame_shift
+        if (self.smooth or self.postprocess
+                or self.frame_length != 2 * shift):
+            return [self.enhance(w)[0] for w in waves]
+        ts = [max(0, (len(w) - shift) // shift) for w in waves]
+        if max(ts, default=0) == 0:
+            return [np.zeros(0, np.int16) for _ in waves]
+        waves_b = np.zeros((len(waves), (max(ts) + 1) * shift),
+                           dtype=np.int16)
+        for i, w in enumerate(waves):
+            n = (ts[i] + 1) * shift if ts[i] else 0
+            waves_b[i, :n] = np.asarray(w[:n], dtype=np.int16)
+        wave_b = self.decode_waves_tensor(
+            self._tensor(waves_b),
+            torch.tensor(ts, device=self.device)).cpu().numpy()
+        tail = self.frame_length - shift
+        return [wave_b[i, : t * shift + tail] if t
+                else np.zeros(0, np.int16) for i, t in enumerate(ts)]
+
+
+def decode_files(wts_path, norm_path, wav_paths: list, out_dir,
+                 clean_paths: list | None = None, log=print,
+                 noisy_info: bool = False, batch_size: int = 0,
+                 postprocess: bool = False, smooth: bool = False,
+                 smooth_strength=None, sample_rate: int = 16000,
+                 blend=0.0, device="cuda") -> list[dict]:
+    """decode.m batch loop: enhance each wav, write *_enhanced.wav + info.
+
+    With ``clean_paths``, per-utterance SegSNR/LSD (enhanced and noisy
+    baselines) go to ``<stem>.info.txt`` as ``LPS2Wav_be`` writes them;
+    ``noisy_info`` also writes the noisy baseline to
+    ``<input-filename>.info`` in ``out_dir`` (the ``-ni`` flag,
+    ``LogSpec2Wav.c:843-861``).  ``batch_size`` > 1 decodes that many
+    utterances per device pass (the int16 fast path when no metrics are
+    needed); the default streams one utterance at a time.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    enh = Enhancer(wts_path, norm_path, device=device,
+                   postprocess=postprocess, smooth=smooth,
+                   smooth_strength=smooth_strength,
+                   sample_rate=sample_rate, blend=blend)
+    norm_sr = 11000 if sample_rate == 11025 else sample_rate
+
+    def check_rate(path, sr):
+        if (11000 if sr == 11025 else sr) != norm_sr:
+            raise ValueError(f"{path}: sample rate {sr} != decoder's "
+                             f"{sample_rate} (pass sample_rate=)")
+
+    waves_srs = outputs = None
+    if batch_size > 1:
+        waves_srs = [read_wav(p) for p in wav_paths]
+        for (_, sr), p in zip(waves_srs, wav_paths):
+            check_rate(p, sr)
+        outputs = []
+        for lo in range(0, len(waves_srs), batch_size):
+            chunk = [w for w, _ in waves_srs[lo: lo + batch_size]]
+            if clean_paths is None:
+                outputs.extend((w, None, None)
+                               for w in enh.enhance_batch_waves(chunk))
+            else:
+                outputs.extend(enh.enhance_batch(chunk))
+    results = []
+    for i, path in enumerate(wav_paths):
+        noisy, sr = (waves_srs[i] if waves_srs is not None
+                     else read_wav(path))
+        check_rate(path, sr)
+        wave, recon, enh_lps = (outputs[i] if outputs is not None
+                                else enh.enhance(noisy))
+        stem = os.path.splitext(os.path.basename(str(path)))[0]
+        out_path = os.path.join(out_dir, stem + "_enhanced.wav")
+        write_wav(out_path, wave, sr)
+        info = {"wav": str(path), "out": out_path}
+        if clean_paths is not None:
+            clean, _ = read_wav(clean_paths[i])
+            info.update(segsnr_lsd_pair(clean, noisy, recon,
+                                        _exp_floored(enh_lps), sample_rate))
+            with open(os.path.join(out_dir, stem + ".info.txt"), "w") as f:
+                f.write("Segmental SNR:\n%f\n" % info["segsnr"])
+                f.write("Log-Spectral Distortion:\n%f\n" % info["lsd"])
+            if noisy_info:
+                ni_name = os.path.basename(str(path)) + ".info"
+                with open(os.path.join(out_dir, ni_name), "w") as f:
+                    f.write("Segmental SNR:\n%f\n" % info["segsnr_noisy"])
+                    f.write("Log-Spectral Distortion:\n%f\n"
+                            % info["lsd_noisy"])
+            log(f"{stem}: segsnr={info['segsnr']:.2f} "
+                f"(noisy {info['segsnr_noisy']:.2f}) "
+                f"lsd={info['lsd']:.2f} (noisy {info['lsd_noisy']:.2f})")
+        else:
+            log(f"{stem}: enhanced -> {out_path}")
+        results.append(info)
+    return results

@@ -1,0 +1,6 @@
+from tpu_se_torch.models.ffn import (
+    DEFAULT_LAYERSIZES, FFN, init_params, params_from_numpy, params_to_numpy,
+)
+
+__all__ = ["DEFAULT_LAYERSIZES", "FFN", "init_params", "params_from_numpy",
+           "params_to_numpy"]

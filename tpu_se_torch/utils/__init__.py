@@ -1,0 +1,3 @@
+from tpu_se_torch.utils.device import resolve_device
+
+__all__ = ["resolve_device"]
