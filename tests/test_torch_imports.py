@@ -20,6 +20,8 @@ def test_port_imports_no_jax():
             "import tpu_se_torch, tpu_se_torch.infer, tpu_se_torch.cli.main\n"
             "import tpu_se_torch.dsp, tpu_se_torch.models, tpu_se_torch.ops\n"
             "import tpu_se_torch.io, tpu_se_torch.bench.profile_decode\n"
+            "import tpu_se_torch.train, tpu_se_torch.data\n"
+            "import tpu_se_torch.losses, tpu_se_torch.utils.logging\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'tpu_se'))\n"

@@ -102,6 +102,7 @@ def test_cpu_lps_path_never_launches_the_kernel():
 def test_nvcc_command_targets_sm90a_without_fast_math():
     sources = _build.cuda_sources()
     assert _build.SRC_DIR / "lps_kernel.cu" in sources
+    assert _build.SRC_DIR / "ggd_kernel.cu" in sources
     cmd = _build.nvcc_command("cuda/bin/nvcc", sources, "out/lib.so")
     assert cmd[0] == "cuda/bin/nvcc"
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"

@@ -1,10 +1,12 @@
-"""Synthetic decode fixtures and timing shared by ``chip_smoke.py`` and
+"""Synthetic fixtures and timing shared by ``chip_smoke.py`` and
 ``profile_decode``.
 
 ``write_fixtures`` makes, from one seed: a full-width random model
 (``DEFAULT_LAYERSIZES``), four 16 kHz noisy/clean wav pairs of 1-4 s
 (harmonic tones under an envelope, plus seeded noise), their ``.norm``,
-and the two ``.scp`` lists.
+and the two ``.scp`` lists.  ``write_train_fixtures`` makes a training
+set the same way: a noisy/clean LPS pfile pair of 24 sentences and the
+noisy ``.norm``.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ import subprocess
 import numpy as np
 import torch
 
-from tpu_se_torch.dsp.analysis import frame_signal, lps_from_frames
-from tpu_se_torch.io import read_wav, write_norm, write_wav, write_wts
+from tpu_se_torch.dsp.analysis import frame_signal, lps_from_frames, wav_to_lps
+from tpu_se_torch.io import (
+    read_wav, write_norm, write_pfile, write_wav, write_wts,
+)
 from tpu_se_torch.models import DEFAULT_LAYERSIZES, init_params
 
 SEED = 1234
@@ -50,6 +54,55 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Training set: 24 sentences of 2-4 s; 0-19 train, 20-23 CV.  The traincache
+# cuts the ~3600 training windows into 4 chunks (3 full, 1 partial).
+TRAIN_SENTENCES = 24
+TRAIN_SENTS = "0-19"
+CV_SENTS = "20-23"
+TRAINCACHE = 1024
+
+
+def _voiced(n: int, f0: float, rng: np.random.Generator
+            ) -> tuple[np.ndarray, np.ndarray]:
+    """(clean, noisy) float waves of n samples: harmonic tones of f0 under
+    a 3 Hz envelope, and the same plus seeded white noise."""
+    t = np.arange(n) / SAMPLE_RATE
+    envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
+    clean = sum(envelope * 2000.0 / h * np.sin(2 * np.pi * h * f0 * t)
+                for h in range(1, 8))
+    return clean, clean + 600.0 * rng.standard_normal(n)
+
+
+def _int16(wave: np.ndarray) -> np.ndarray:
+    return np.clip(wave, -32768, 32767).astype(np.int16)
+
+
+def write_train_fixtures(root: str, seed: int = SEED) -> dict:
+    """Write a synthetic training set under ``root``.
+
+    ``TRAIN_SENTENCES`` seeded sentences of 2-4 s (tones plus noise, as
+    ``write_fixtures``), their LPS from the port's CPU ``wav_to_lps`` in a
+    noisy and a clean pfile, and the noisy statistics as ``.norm``.
+    Returns the paths (``noisy``, ``clean``, ``norm``) and the ``train``
+    command's ``train_sents``, ``cv_sents`` and ``traincache``.
+    """
+    rng = np.random.default_rng(seed)
+    noisy_lps, clean_lps = [], []
+    for i in range(TRAIN_SENTENCES):
+        n = int(rng.integers(2 * SAMPLE_RATE, 4 * SAMPLE_RATE + 1))
+        clean, noisy = _voiced(n, 90.0 + 7.0 * i, rng)
+        clean_lps.append(wav_to_lps(_int16(clean), device="cpu"))
+        noisy_lps.append(wav_to_lps(_int16(noisy), device="cpu"))
+    paths = {k: os.path.join(root, f"train_{k}.{ext}") for k, ext in
+             (("noisy", "pfile"), ("clean", "pfile"), ("norm", "norm"))}
+    write_pfile(paths["noisy"], noisy_lps)
+    write_pfile(paths["clean"], clean_lps)
+    frames = np.concatenate(noisy_lps)
+    write_norm(paths["norm"], frames.mean(axis=0), 1.0 / frames.std(axis=0))
+    return {**paths, "train_sents": TRAIN_SENTS, "cv_sents": CV_SENTS,
+            "traincache": TRAINCACHE}
+
+
 def write_fixtures(root: str, layersizes=DEFAULT_LAYERSIZES,
                    seed: int = SEED) -> dict:
     """Write the model, wavs, .norm and .scp files under ``root``.
@@ -62,17 +115,11 @@ def write_fixtures(root: str, layersizes=DEFAULT_LAYERSIZES,
     write_wts(wts, init_params(seed, layersizes))
     noisy_paths, clean_paths, noisy_waves = [], [], []
     for i, n in enumerate(UTT_SAMPLES):
-        t = np.arange(n) / SAMPLE_RATE
-        f0 = 110.0 + 30.0 * i
-        envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
-        clean = sum(envelope * 2000.0 / h * np.sin(2 * np.pi * h * f0 * t)
-                    for h in range(1, 8))
-        noisy = clean + 600.0 * rng.standard_normal(n)
+        clean, noisy = _voiced(n, 110.0 + 30.0 * i, rng)
         for kind, wave, paths in (("clean", clean, clean_paths),
                                   ("noisy", noisy, noisy_paths)):
             path = os.path.join(root, f"utt{i}_{kind}.wav")
-            write_wav(path, np.clip(wave, -32768, 32767).astype(np.int16),
-                      SAMPLE_RATE)
+            write_wav(path, _int16(wave), SAMPLE_RATE)
             paths.append(path)
         noisy_waves.append(read_wav(noisy_paths[-1])[0])
     lps = np.concatenate([

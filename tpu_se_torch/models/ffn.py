@@ -40,6 +40,23 @@ def init_params(seed: int, layersizes=DEFAULT_LAYERSIZES,
     return params
 
 
+def init_params_uniform(seed: int, layersizes=DEFAULT_LAYERSIZES,
+                        weight_min: float = -0.1, weight_max: float = 0.1,
+                        bias_min: float = -0.1, bias_max: float = 0.1
+                        ) -> list[dict]:
+    """The trainer's plain-uniform init when no initial ``.wts`` is given
+    (``Interface.cc:140-143``, keys ``init_randem_{weight,bias}_{min,max}``),
+    bit-identical to ``tpu_se.models.init_params_uniform``."""
+    rng = np.random.default_rng(seed)
+    params = []
+    for n_in, n_out in zip(layersizes[:-1], layersizes[1:]):
+        w = rng.uniform(weight_min, weight_max,
+                        size=(n_in, n_out)).astype(np.float32)
+        b = rng.uniform(bias_min, bias_max, size=n_out).astype(np.float32)
+        params.append({"w": w, "b": b})
+    return params
+
+
 class FFN(nn.Module):
     """Fully connected network; ``weights[i]`` is ``[n_in, n_out]``.
 
@@ -60,12 +77,28 @@ class FFN(nn.Module):
             nn.Parameter(torch.zeros(n_out, device=device))
             for _, n_out in pairs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [M, n_in] -> [M, n_out]."""
+    def forward(self, x: torch.Tensor, dropout: tuple | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x [M, n_in] -> [M, n_out].
+
+        ``dropout=(visible_omit, hid_omit)`` is the reference's input-side
+        dropout (``BP_GPU.cu:344-356``): the input of layer 0 is zeroed
+        with probability ``visible_omit`` and that of every later layer
+        with ``hid_omit``; kept values are scaled by 1/(1-p) (inverted
+        dropout, so inference needs no weight rescaling).  The masks come
+        from ``generator``, which must lie on ``x``'s device.
+        """
+        if dropout is not None and generator is None:
+            raise ValueError("dropout needs a torch.Generator")
         act = _ACTIVATIONS[self.activation]
         h = x
         last = len(self.weights) - 1
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            p = 0.0 if dropout is None else dropout[0 if i == 0 else 1]
+            if p > 0.0:
+                keep = torch.rand(h.shape, generator=generator,
+                                  device=h.device) < 1.0 - p
+                h = torch.where(keep, h / (1.0 - p), 0.0)
             z = torch.addmm(b, h, w)
             h = act(z) if i < last else z
         return h

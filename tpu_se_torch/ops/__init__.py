@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 The wrappers launch on CUDA tensors and raise on anything else; callers
-choose the plain version for CPU tensors (see ``tpu_se_torch.dsp``).
+choose the plain version for CPU tensors (see ``tpu_se_torch.dsp`` and
+``tpu_se_torch.losses``).
 """
 
-from tpu_se_torch.ops import lps_kernel
+from tpu_se_torch.ops import ggd_kernel, lps_kernel
+from tpu_se_torch.ops.ggd_kernel import (
+    ggd_output_grad_cuda, ggd_output_grad_plain,
+)
 from tpu_se_torch.ops.lps_kernel import lps_cuda, lps_plain
 
-__all__ = ["lps_kernel", "lps_cuda", "lps_plain"]
+__all__ = ["ggd_kernel", "lps_kernel", "ggd_output_grad_cuda",
+           "ggd_output_grad_plain", "lps_cuda", "lps_plain"]

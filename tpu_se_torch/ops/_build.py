@@ -24,7 +24,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "tpu_se_torch"
 
 # sm_90a, not sm_90: later kernels use wgmma/setmaxnreg, which exist only
 # for the arch-specific target.  No --use_fast_math: the LPS epilogue needs
-# the IEEE logf and an exact compare against the e^-50 floor.
+# the IEEE logf and an exact compare against the e^-50 floor, and the GGD
+# gradient the IEEE powf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,4 +94,7 @@ def load_library() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lps_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32, f32, ptr]
     lib.lps_forward.restype = i32
+    lib.ggd_output_grad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32,
+                                    f32, f32, ptr]
+    lib.ggd_output_grad.restype = i32
     return lib, log

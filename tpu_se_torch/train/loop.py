@@ -1,0 +1,349 @@
+"""The epoch loop: the ``finetune.pl`` + ``BPtrain.cc`` equivalent.
+
+Port of ``tpu_se/train/loop.py`` for one device.  Epoch protocol
+(``finetune.pl:10-155``, ``BPtrain.cc:55-146``):
+
+- epoch N trains from epoch N-1's weights; lr constant for epochs 1..10,
+  then *= 0.9 per epoch; seed = init_seed + 345*(epoch-1);
+- resume-by-existence: an epoch whose ``mlp.N.wts`` exists is skipped;
+  with ``checkpoint_every_chunks`` an epoch also resumes mid-way from its
+  chunk-stamped partial checkpoint, replaying the shuffle draws;
+- momentum velocity resets at each epoch boundary unless
+  ``carry_velocity``;
+- per-epoch CV metrics: squared error, abs error, GGD log-likelihood.
+
+The shuffles come from the same ``np.random.Generator`` draws as in
+``tpu_se``, so both packages train on the same bunches in the same order.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import math
+import os
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpu_se_torch.data import PfilePairDataset, PrefetchIterator
+from tpu_se_torch.io import atomic_write
+from tpu_se_torch.losses import ref_gamma
+from tpu_se_torch.models import (
+    DEFAULT_LAYERSIZES, init_params, init_params_uniform, params_from_numpy,
+)
+from tpu_se_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from tpu_se_torch.train.step import (
+    TrainHyper, TrainState, cv_chunk_metrics, make_train_state, train_chunk,
+)
+from tpu_se_torch.utils import EpochLogger, resolve_device
+
+CV_BATCH = 4096
+
+
+@dataclass
+class TrainConfig:
+    """The reference's config keys (``Interface.cc:150-315``) plus the
+    framework's knobs, as ``tpu_se.train.TrainConfig`` has them (without
+    its multi-host and bf16 fields)."""
+
+    fea_file: str = ""
+    targ_file: str = ""
+    norm_file: str = ""
+    init_wts_file: str = ""          # empty -> random init
+    out_dir: str = "mlp_out"
+    layersizes: tuple = DEFAULT_LAYERSIZES
+    bunchsize: int = 128
+    ml_flag: bool = True
+    shapefactor: float = 1.0
+    momentum: float = 0.9
+    weightcost: float = 1e-5
+    lrate: float = 0.1
+    fea_dim: int = 257
+    fea_context: int = 7
+    traincache: int = 102400
+    init_seed: int = 27870775
+    targ_offset: int = 3
+    train_sent_range: tuple = (0, 7)
+    cv_sent_range: tuple = (8, 9)
+    epochs: int = 50
+    lr_const_epochs: int = 10
+    lr_decay: float = 0.9
+    seed_increment: int = 345
+    grad_scale: str = "parity"
+    carry_velocity: bool = False
+    # init_randem_{weight,bias}_{min,max} (Interface.cc:140-143): when set
+    # (and no init_wts_file), plain uniform init from these ranges.
+    init_ranges: tuple | None = None  # (w_min, w_max, b_min, b_max)
+    activation: str = "sigmoid"      # "relu" = the reference's RELU build
+    dropout_flag: bool = False       # dropoutflag (finetune.pl:74-76)
+    visible_omit: float = 0.1
+    hid_omit: float = 0.1
+    device_resident: str = "auto"    # "auto" | "always" | "never"
+    device_resident_max_bytes: int = 4 << 30
+    checkpoint_every_chunks: int = 0  # >0: mid-epoch partial checkpoints
+
+    def hyper(self) -> TrainHyper:
+        return TrainHyper(
+            beta=self.shapefactor, ml=self.ml_flag, momentum=self.momentum,
+            weightcost=self.weightcost, bunchsize=self.bunchsize,
+            context=self.fea_context, targ_offset=self.targ_offset,
+            grad_scale=self.grad_scale, activation=self.activation,
+            dropout=((self.visible_omit, self.hid_omit)
+                     if self.dropout_flag else None),
+        )
+
+    def lr_for_epoch(self, epoch: int) -> float:
+        decay_steps = max(0, epoch - self.lr_const_epochs)
+        return self.lrate * (self.lr_decay ** decay_steps)
+
+    def seed_for_epoch(self, epoch: int) -> int:
+        return self.init_seed + self.seed_increment * (epoch - 1)
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host numpy -> tensor on ``device``.  A CUDA copy goes through pinned
+    memory without blocking the host, so it does not wait for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def load_device_frames(dataset: PfilePairDataset, device
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Upload a dataset's normalized frame span to ``device`` (once per
+    job): ``train_one_epoch(device_frames=...)`` then moves only window
+    starts."""
+    device = torch.device(device)
+    noisy, clean = dataset.load_span_normalized()
+    return to_device(noisy, device), to_device(clean, device)
+
+
+def dropout_generator(seed: int, chunk: int, device) -> torch.Generator:
+    """The dropout masks' generator for one chunk of an epoch: seeded from
+    the epoch's draw and the chunk index (as JAX folds the chunk index into
+    its key), so a mid-epoch resume draws the same masks."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, chunk])
+                        .generate_state(1)[0]))
+    return gen
+
+
+def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
+                    hyper: TrainHyper, lr: float, rng: np.random.Generator,
+                    device, device_frames=None, log=print,
+                    start_chunk: int = 0, ckpt_every: int = 0,
+                    ckpt_cb=None) -> TrainState:
+    """One epoch over the dataset's chunks on ``device``.
+
+    With ``device_frames`` (from ``load_device_frames``) the frames stay on
+    the device and each chunk uploads only its ``[n_bunches, M]`` starts;
+    without, each chunk's frames are uploaded with them.  ``start_chunk``
+    resumes mid-epoch: the skipped chunks' rng draws are replayed (not
+    trained).  With ``ckpt_every`` > 0, ``ckpt_cb(state, chunks_done)``
+    fires after every N trained chunks.
+    """
+    device = torch.device(device)
+    n_chunks = dataset.n_chunks
+    # Drawn BEFORE the chunk permutation, exactly where tpu_se draws its
+    # dropout key, so every later shuffle stays the JAX package's.
+    dropout_seed = (int(rng.integers(2 ** 31))
+                    if hyper.dropout is not None else None)
+    m = hyper.bunchsize
+
+    def run(i, noisy, clean, starts, tag):
+        n_bunches = len(starts) // m
+        if n_bunches == 0:
+            return
+        starts = starts[: n_bunches * m].reshape(n_bunches, m)
+        gen = (dropout_generator(dropout_seed, i, device)
+               if dropout_seed is not None else None)
+        train_chunk(state, noisy, clean,
+                    to_device(starts.astype(np.int64), device), lr, hyper,
+                    generator=gen)
+        log(f"  chunk {i+1}/{n_chunks}: {n_bunches} bunches{tag}")
+        if ckpt_every and ckpt_cb is not None and (i + 1) % ckpt_every == 0:
+            ckpt_cb(state, i + 1)
+
+    if device_frames is not None:
+        noisy_dev, clean_dev = device_frames
+        for i, starts in enumerate(
+                PrefetchIterator(dataset.epoch_chunk_starts(rng))):
+            if i >= start_chunk:           # rng already consumed by the gen
+                run(i, noisy_dev, clean_dev, starts, " (resident)")
+        return state
+
+    for i, chunk in enumerate(
+            PrefetchIterator(dataset.epoch_chunks(rng, skip=start_chunk)),
+            start=start_chunk):
+        run(i, to_device(chunk.noisy, device), to_device(chunk.clean, device),
+            chunk.starts, "")
+    return state
+
+
+def evaluate_cv(state: TrainState, cv_dataset: PfilePairDataset,
+                hyper: TrainHyper, device, device_frames=None) -> dict:
+    """CV metrics over a dataset (sequential order, partial bunches kept;
+    ``Interface.cc:841-965`` + ``BP_GPU.cu:187-306``).
+
+    Batches of ``CV_BATCH`` windows; each batch's three float32 sums are
+    accumulated into a float64 tensor on the device, which the host reads
+    once at the end.
+    """
+    device = torch.device(device)
+    out_dim = cv_dataset.dim
+    acc = torch.zeros(3, dtype=torch.float64, device=device)
+    n_total = 0
+
+    def accumulate(noisy_dev, clean_dev, starts):
+        nonlocal n_total
+        for lo in range(0, len(starts), CV_BATCH):
+            s = starts[lo:lo + CV_BATCH]
+            acc.add_(cv_chunk_metrics(
+                state.model, noisy_dev, clean_dev,
+                to_device(s.astype(np.int64), device), state.alpha,
+                hyper).double())
+            n_total += len(s)
+
+    for ci in range(cv_dataset.n_chunks):
+        if device_frames is not None:
+            accumulate(*device_frames, cv_dataset.chunk_starts(ci))
+        else:
+            chunk = cv_dataset.chunk(ci)       # no rng -> sequential
+            accumulate(to_device(chunk.noisy, device),
+                       to_device(chunk.clean, device), chunk.starts)
+
+    sq, ab, sum_pow = acc.tolist()
+    alpha = state.alpha.cpu().numpy().astype(np.float64)
+    gamma_val = ref_gamma(1.0 / hyper.beta)
+    loglik = (n_total * out_dim * math.log(hyper.beta / (2.0 * gamma_val))
+              - n_total * float(np.log(alpha).sum()) - sum_pow)
+    return {"cv_squared_error": sq, "cv_abs_error": ab / out_dim,
+            "cv_ggd_loglik": loglik, "cv_frames": n_total}
+
+
+def _initial_state(cfg: TrainConfig, device) -> TrainState:
+    if cfg.init_wts_file:
+        return load_checkpoint(cfg.init_wts_file, device, cfg.activation)
+    if cfg.init_ranges is not None:
+        layers = init_params_uniform(cfg.seed_for_epoch(1), cfg.layersizes,
+                                     *cfg.init_ranges)
+    else:
+        layers = init_params(cfg.seed_for_epoch(1), cfg.layersizes)
+    return make_train_state(params_from_numpy(layers, device,
+                                              activation=cfg.activation))
+
+
+def run_training(cfg: TrainConfig, device, log=print) -> str:
+    """Run the full multi-epoch schedule on ``device``; returns the final
+    .wts path.  ``device`` is ``"cuda"`` or ``"cpu"`` (``resolve_device``:
+    a CUDA request without a card raises)."""
+    device = resolve_device(device)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    hyper = cfg.hyper()
+
+    dataset = PfilePairDataset(
+        cfg.fea_file, cfg.targ_file, cfg.norm_file, cfg.train_sent_range,
+        cfg.traincache, cfg.fea_context, cfg.targ_offset)
+    cv_dataset = PfilePairDataset(
+        cfg.fea_file, cfg.targ_file, cfg.norm_file, cfg.cv_sent_range,
+        cfg.traincache, cfg.fea_context, cfg.targ_offset)
+
+    def resident(ds):
+        if cfg.device_resident == "never":
+            return None
+        if (cfg.device_resident == "auto"
+                and ds.span_bytes() > cfg.device_resident_max_bytes):
+            return None
+        return load_device_frames(ds, device)
+
+    train_frames = resident(dataset)
+    cv_frames = resident(cv_dataset)
+    if train_frames is not None:
+        log(f"train span resident on {device} "
+            f"({dataset.span_bytes() / 1e6:.0f} MB)")
+
+    last_path = ""
+    state = None          # in-memory state carried across epochs
+    for epoch in range(1, cfg.epochs + 1):
+        out_path = os.path.join(cfg.out_dir, f"mlp.{epoch}.wts")
+        if os.path.exists(out_path):
+            log(f"epoch {epoch}: {out_path} exists, skipping (resume)")
+            last_path = out_path
+            state = None  # must reload from disk when training resumes
+            continue
+
+        if epoch == 1:
+            state = _initial_state(cfg, device)
+        else:
+            if state is None:
+                state = load_checkpoint(last_path, device, cfg.activation)
+            if not cfg.carry_velocity:
+                state = make_train_state(state.model)
+
+        # Mid-epoch resume.  Partial checkpoints are chunk-stamped
+        # (mlp.N.partial.<k>.wts + sidecar) and committed by an atomic
+        # rename of the meta file naming <k>, written only after both are
+        # complete: a crash at any point leaves the meta pointing at a
+        # self-consistent (weights, velocity, alpha, position) set.
+        partial_stem = os.path.join(cfg.out_dir, f"mlp.{epoch}.partial")
+        meta_path = f"{partial_stem}.wts.meta.json"
+        start_chunk = 0
+        if cfg.checkpoint_every_chunks and os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if meta.get("epoch") == epoch:
+                start_chunk = int(meta["chunks_done"])
+                pp = f"{partial_stem}.{start_chunk}.wts"
+                if os.path.exists(pp):
+                    state = load_checkpoint(pp, device, cfg.activation)
+                    log(f"epoch {epoch}: resuming mid-epoch at chunk "
+                        f"{start_chunk} from {pp}")
+                else:
+                    start_chunk = 0
+                    log(f"epoch {epoch}: partial meta found but no "
+                        f"checkpoint file; restarting epoch")
+
+        def partial_files(_stem=partial_stem):
+            return glob.glob(f"{_stem}.*")
+
+        def save_partial(st, chunks_done, _epoch=epoch, _stem=partial_stem,
+                         _mp=meta_path):
+            pp = f"{_stem}.{chunks_done}.wts"
+            save_checkpoint(pp, st)
+            atomic_write(_mp, lambda f: json.dump(
+                {"epoch": _epoch, "chunks_done": chunks_done}, f),
+                mode="w")   # the rename is the commit point
+            for p in partial_files(_stem):
+                if (not p.endswith(".meta.json")
+                        and f".{chunks_done}.wts" not in p):
+                    os.remove(p)
+
+        lr = cfg.lr_for_epoch(epoch)
+        rng = np.random.default_rng(cfg.seed_for_epoch(epoch))
+        elog = EpochLogger(cfg.out_dir, epoch)
+        elog(f"epoch {epoch} lr={lr:.6g} seed={cfg.seed_for_epoch(epoch)}")
+        elog.config(cfg)
+        t0 = time.time()
+        state = train_one_epoch(
+            state, dataset, hyper, lr, rng, device,
+            device_frames=train_frames, log=elog, start_chunk=start_chunk,
+            ckpt_every=cfg.checkpoint_every_chunks,
+            ckpt_cb=save_partial if cfg.checkpoint_every_chunks else None)
+        metrics = evaluate_cv(state, cv_dataset, hyper, device,
+                              device_frames=cv_frames)
+        dt = time.time() - t0
+        # Velocity resets each epoch under the parity schedule, so the
+        # sidecar only matters when it carries across epochs.
+        save_checkpoint(out_path, state, with_state=cfg.carry_velocity)
+        for p in partial_files():
+            os.remove(p)
+        elog.finish(metrics)
+        log(f"epoch {epoch}: sq={metrics['cv_squared_error']:.1f} "
+            f"abs={metrics['cv_abs_error']:.1f} "
+            f"ll={metrics['cv_ggd_loglik']:.1f} ({dt:.1f}s)")
+        last_path = out_path
+    return last_path

@@ -1,0 +1,43 @@
+"""Momentum-SGD with weight decay, matching ``kernUpdatedelta`` exactly.
+
+``v = momentum*v - lr*(grad/n + weightcost*w);  w += v``
+(``DevFunc.cu:490-507``; port of ``tpu_se/train/optim.py``).
+
+- ``grad`` is the SUM over the bunch of per-sample gradients, already
+  carrying the loss-side 1/M in parity mode, so the effective step is
+  lr/M^2 on the loss gradient.
+- Weight decay applies to weights only; biases use weightcost 0
+  (``BP_GPU.cu:433-435``).
+
+Not ``torch.optim.SGD``: its momentum keeps lr outside the velocity
+(``v = momentum*v + g; w -= lr*v``) and adds the decay to the gradient
+before the momentum, so its steps differ from the reference's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sgd_momentum_init(params: list[dict]) -> list[dict]:
+    """Zero velocity shaped like ``[{"w": ..., "b": ...}]`` params."""
+    return [{k: torch.zeros_like(v) for k, v in layer.items()}
+            for layer in params]
+
+
+@torch.no_grad()
+def sgd_momentum_update(params: list[dict], velocity: list[dict],
+                        grads: list[dict], lr: float, momentum: float,
+                        weightcost: float, n: int) -> None:
+    """One reference-exact update, IN PLACE on ``params`` and ``velocity``
+    (lists of ``{"w", "b"}`` tensors); ``grads`` are bunch-summed and ``n``
+    is the bunch size (1 for the ``natural`` scale).  Each operation rounds
+    to float32 where the JAX expression does."""
+    for p_l, v_l, g_l in zip(params, velocity, grads):
+        for key, wc in (("w", weightcost), ("b", 0.0)):
+            p, v = p_l[key], v_l[key]
+            step = g_l[key] / n
+            if wc:
+                step = step + wc * p
+            v.mul_(momentum).sub_(lr * step)
+            p.add_(v)

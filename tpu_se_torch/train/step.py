@@ -1,0 +1,138 @@
+"""The training step: one Python loop over the bunches of a chunk.
+
+Port of ``tpu_se/train/step.py`` (reference per-bunch loop
+``BP_GPU.cu:152-185,308-440``).  Where JAX runs the bunches of a chunk
+inside one ``lax.scan``, the port runs them as a Python loop of eager
+launches on the card:
+
+- The 7-frame context splice is a device gather from the chunk's (or the
+  resident span's) frame matrix; the chunk's window starts arrive as one
+  ``[n_bunches, M]`` device tensor, so the loop itself never copies to or
+  from the host and never synchronises.
+- The backward pass is ``torch.autograd.grad`` of the forward with an
+  EXPLICIT output cotangent, the reference's hand-written gradient chain
+  (its 1/M and e==0 conventions), not the gradient of a scalar loss.  The
+  cotangent comes from ``output_grad_and_alpha`` -- on the card the GGD
+  kernel -- which nothing differentiates through, just as JAX feeds it to
+  ``vjp``; so the kernel needs no ``autograd.Function``.
+- Partial bunches are dropped by the caller (``starts[: n_bunches*M]``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpu_se_torch.losses import output_grad_and_alpha
+from tpu_se_torch.models import FFN
+from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
+
+
+@dataclass(frozen=True)
+class TrainHyper:
+    """Training hyper-parameters.
+
+    ``grad_scale='parity'`` reproduces the reference's double 1/M (loss
+    gradient / M, then the optimizer's grad/n again); ``'natural'``
+    applies the bunch mean once.
+    """
+    beta: float = 1.0
+    ml: bool = True
+    momentum: float = 0.9
+    weightcost: float = 1e-5
+    bunchsize: int = 128
+    context: int = 7
+    targ_offset: int = 3
+    grad_scale: str = "parity"   # "parity" | "natural"
+    activation: str = "sigmoid"  # "sigmoid" | "relu" (the #ifdef RELU build)
+    dropout: tuple | None = None  # (visible_omit, hid_omit) or None
+
+    def __post_init__(self):
+        if self.grad_scale not in ("parity", "natural"):
+            raise ValueError(f"bad grad_scale {self.grad_scale!r}")
+
+
+@dataclass
+class TrainState:
+    model: FFN                  # trained in place
+    velocity: list              # [{"w", "b"}] tensors, like the params
+    alpha: torch.Tensor         # last-bunch GGD scale factors [D]
+
+
+def param_layers(model: FFN) -> list[dict]:
+    """The model's parameters as ``[{"w": [n_in, n_out], "b": [n_out]}]``
+    (the same tensors, not copies)."""
+    return [{"w": w, "b": b} for w, b in zip(model.weights, model.biases)]
+
+
+def make_train_state(model: FFN) -> TrainState:
+    """Zero velocity and unit alpha for ``model``."""
+    out_dim = model.biases[-1].shape[0]
+    return TrainState(model, sgd_momentum_init(param_layers(model)),
+                      torch.ones(out_dim, dtype=torch.float32,
+                                 device=model.biases[-1].device))
+
+
+def gather_splice(frames: torch.Tensor, starts: torch.Tensor, context: int
+                  ) -> torch.Tensor:
+    """frames [F, D] + starts [M] (int64) -> spliced [M, context*D], a
+    gather on the frames' device."""
+    idx = starts[:, None] + torch.arange(context, device=starts.device)
+    return frames[idx].reshape(starts.shape[0], context * frames.shape[1])
+
+
+def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
+                starts: torch.Tensor, lr: float, hyper: TrainHyper,
+                generator: torch.Generator | None = None) -> TrainState:
+    """Train all full bunches of one chunk, in place; returns ``state``.
+
+    noisy/clean: [F, D] normalized frames; starts: [n_bunches, M] int64
+    window starts (shuffled), all on one device.  ``lr`` is rounded to
+    float32 first, as JAX's ``jnp.float32(lr)``.  ``generator`` (on that
+    device) draws the dropout masks when ``hyper.dropout`` is set.  alpha
+    after the call is the last bunch's.
+    """
+    opt_n = hyper.bunchsize if hyper.grad_scale == "parity" else 1
+    lr = float(np.float32(lr))
+    dropout = hyper.dropout if generator is not None else None
+    layers = param_layers(state.model)
+    params = [p for layer in layers for p in (layer["w"], layer["b"])]
+    alpha = state.alpha
+    with torch.enable_grad():
+        for bunch in starts:
+            x = gather_splice(noisy, bunch, hyper.context)
+            targ = clean[bunch + hyper.targ_offset]
+            out = state.model(x, dropout=dropout, generator=generator)
+            dedx, alpha = output_grad_and_alpha(out.detach(), targ,
+                                                hyper.beta, hyper.ml)
+            grads = torch.autograd.grad(out, params, grad_outputs=dedx)
+            sgd_momentum_update(
+                layers, state.velocity,
+                [{"w": gw, "b": gb} for gw, gb in zip(grads[::2], grads[1::2])],
+                lr, hyper.momentum, hyper.weightcost, opt_n)
+    state.alpha = alpha
+    return state
+
+
+@torch.no_grad()
+def cv_forward(model: FFN, noisy: torch.Tensor, starts: torch.Tensor,
+               context: int = 7) -> torch.Tensor:
+    """Forward a batch of CV windows: [N] starts -> [N, out_dim] outputs."""
+    return model(gather_splice(noisy, starts, context))
+
+
+@torch.no_grad()
+def cv_chunk_metrics(model: FFN, noisy: torch.Tensor, clean: torch.Tensor,
+                     starts: torch.Tensor, alpha: torch.Tensor,
+                     hyper: TrainHyper) -> torch.Tensor:
+    """Device-side CV sums for one batch of windows -> float32 [3]:
+    (sum squared err, sum abs err, sum (|err|/alpha)^beta), the three
+    reductions behind ``CrossValid``, ``CrossValiddB`` and ``CrossValid2``
+    (``BP_GPU.cu:187-306``).  The batch is not padded, so no mask."""
+    out = cv_forward(model, noisy, starts, hyper.context)
+    err = out - clean[starts + hyper.targ_offset]
+    abs_e = err.abs()
+    return torch.stack([(err * err).sum(), abs_e.sum(),
+                        ((abs_e / alpha) ** hyper.beta).sum()])
