@@ -9,11 +9,15 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
 1. reports torch/CUDA versions and the card's name and power limit;
 2. requires ``torch.cuda.is_available()``;
 3. builds the CUDA kernels from ``tpu_se_torch/csrc`` (timed);
-4. kernel phase: ``lps_cuda`` against ``lps_plain`` on the card, for
-   T in {1, 37, 256, 4097} and the decode's own shapes, L in {512, 256},
-   seeded frames x1000 with zeroed rows (which must give exactly -50);
-   atol 1e-5 in the log domain; times both at T = 256, 4096 and the
-   batched decode's shape;
+4. kernel phase: counts the ``DMMA`` (fp64 tensor-core) instructions of
+   each LPS kernel in the built library's SASS (``cuobjdump -sass``) and
+   fails on 0; ``lps_cuda`` against ``lps_plain`` on the card, for T in
+   {1, 37, 256, 4097}, both sides of the kernel's tile switch and the
+   decode's own shapes, L in {512, 256}, seeded frames x1000 with zeroed
+   rows (which must give exactly -50); atol 1e-5 in the log domain, and a
+   rerun must be bitwise equal; times both, with the kernel's fp64
+   TFLOP/s, at T in {256, 992, 3968, 4096, 16384} and the batched
+   decode's shape;
 5. slice phase: writes a full-width (1799, 2048, 2048, 2048, 257) random
    model, four 16 kHz noisy/clean wav pairs and their ``.norm``, then runs
    ``python -m tpu_se_torch decode`` in-process on the card (plain,
@@ -70,7 +74,9 @@ from tpu_se_torch.dsp.analysis import dft_basis  # noqa: E402
 from tpu_se_torch.infer import Enhancer  # noqa: E402
 from tpu_se_torch.io import read_pfile_meta, read_wav, read_wts  # noqa: E402
 from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
-from tpu_se_torch.ops._build import load_library  # noqa: E402
+from tpu_se_torch.ops._build import (  # noqa: E402
+    load_library, sass_opcode_counts,
+)
 from tpu_se_torch.train import (  # noqa: E402
     TrainConfig, load_checkpoint, load_device_frames, train_one_epoch,
 )
@@ -103,26 +109,41 @@ RUNS = {
 }
 
 
+def tensor_core_check() -> None:
+    """The LPS kernels must compute on the fp64 tensor cores: count DMMA
+    instructions in each of their functions in the built library."""
+    counts = {name: n for name, n in sass_opcode_counts("DMMA").items()
+              if "lps_kernel" in name}
+    for name, n in counts.items():
+        print(f"sass    {n:4d} DMMA in {name}")
+    if not counts or min(counts.values()) == 0:
+        raise SystemExit(f"LPS kernel without DMMA instructions: {counts}")
+
+
 def kernel_phase(dev, decode_rows: list[int]) -> dict:
     rng = np.random.default_rng(SEED)
     max_err = 0.0
+    switch = [lps_kernel.SMALL_TILE_MAX_T, lps_kernel.SMALL_TILE_MAX_T + 1]
     for length in (512, 256):
         basis = dft_basis(length, dev)
-        shapes = [1, 37, 256, 4097] + (decode_rows if length == 512 else [])
+        shapes = ([1, 37, 256, 4097] + switch
+                  + (decode_rows if length == 512 else []))
         for t in shapes:
             frames = (rng.standard_normal((t, length)) * 1000).astype(
                 np.float32)
             frames[3::7] = 0.0                       # floor rows
             x = torch.from_numpy(frames).to(dev)
             got = lps_kernel.lps_cuda(x, basis)
+            again = lps_kernel.lps_cuda(x, basis)
             torch.cuda.synchronize()
             want = lps_kernel.lps_plain(x, basis)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             floor_ok = bool((got[3::7] == -50.0).all().item()) if t > 3 else True
+            same = torch.equal(got, again)
             print(f"kernel  L={length} T={t:5d}: max|cuda-plain|={err:.3e} "
-                  f"floor rows exact={floor_ok}")
-            if not (err <= LPS_ATOL and floor_ok
+                  f"floor rows exact={floor_ok} rerun bitwise={same}")
+            if not (err <= LPS_ATOL and floor_ok and same
                     and bool(torch.isfinite(got).all().item())):
                 raise SystemExit(f"lps_cuda disagrees at L={length} T={t}")
             max_err = max(max_err, err)
@@ -133,14 +154,16 @@ def kernel_phase(dev, decode_rows: list[int]) -> dict:
 
     basis = dft_basis(512, dev)
     times = {}
-    for t in (256, 4096, decode_rows[-1]):
+    for t in sorted({256, 992, 3968, 4096, 16384, decode_rows[-1]}):
         x = torch.from_numpy((rng.standard_normal((t, 512)) * 1000).astype(
             np.float32)).to(dev)
         cuda_ms = time_ms(lambda: lps_kernel.lps_cuda(x, basis))
         plain_ms = time_ms(lambda: lps_kernel.lps_plain(x, basis))
         times[t] = (cuda_ms, plain_ms)
-        print(f"kernel  T={t:5d} L=512: lps_cuda {cuda_ms * 1e3:.1f} us/call, "
-              f"lps_plain {plain_ms * 1e3:.1f} us/call")
+        tflops = 2 * t * 512 * 514 / (cuda_ms * 1e-3) / 1e12
+        print(f"kernel  T={t:5d} L=512: lps_cuda {cuda_ms * 1e3:.1f} "
+              f"us/call ({tflops:.1f} TFLOP/s fp64), lps_plain "
+              f"{plain_ms * 1e3:.1f} us/call")
     return {"max_abs_err": max_err, "times": times}
 
 
@@ -447,6 +470,8 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"build   {line.strip()}")
+
+    tensor_core_check()
 
     with tempfile.TemporaryDirectory() as root:
         fx = write_fixtures(root)

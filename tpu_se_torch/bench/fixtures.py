@@ -54,6 +54,31 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Device microseconds per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph and replayed, CUDA events around each replay, median of
+    ``repeats``.  Unlike ``time_ms`` it leaves out the host's time to issue
+    each call, which sets ``time_ms`` for a kernel of a few microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) * 1e3 / calls)
+    return sorted(runs)[repeats // 2]
+
+
 # Training set: 24 sentences of 2-4 s; 0-19 train, 20-23 CV.  The traincache
 # cuts the ~3600 training windows into 4 chunks (3 full, 1 partial).
 TRAIN_SENTENCES = 24

@@ -16,8 +16,9 @@ utterances of 1-4 s), for the device-only int16 decode
 - the device kernels by self time.
 
 Then the LPS kernel against its float64 plain version and a float32
-cuBLAS product (time and max error), and the FFN alone at the decode's
-row counts.  Exits non-zero without a CUDA card.
+cuBLAS product (time by CUDA events over back-to-back calls, device time
+by CUDA-graph replay, max error, the kernel's fp64 TFLOP/s), and the FFN
+alone at the decode's row counts.  Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tpu_se_torch.bench.fixtures import (
-    card_line, pad_batch, time_ms, write_fixtures,
+    card_line, device_us, pad_batch, time_ms, write_fixtures,
 )
 from tpu_se_torch.dsp.analysis import dft_basis
 from tpu_se_torch.infer import Enhancer
@@ -105,14 +106,17 @@ def profile_lps(dev) -> None:
         for name in ("plain64", "cuda", "fp32blas",
                      "fp32blas", "cuda", "plain64"):
             us[name].append(time_ms(fns[name]) * 1e3)
+        dev_us = {name: device_us(fns[name]) for name in ("cuda", "plain64")}
         ref = fns["plain64"]()
         err = {name: (fns[name]() - ref).abs().max().item()
                for name in ("cuda", "fp32blas")}
-        tflops = 2 * t * 512 * 514 / (min(us["cuda"]) * 1e-6) / 1e12
-        print(f"lps T={t}: " + ", ".join(
+        tflops = 2 * t * 512 * 514 / (dev_us["cuda"] * 1e-6) / 1e12
+        print(f"lps T={t}: events " + ", ".join(
             f"{k} {v[0]:.1f}/{v[1]:.1f} us" for k, v in us.items())
-            + f"; max err vs plain64: cuda {err['cuda']:.2e}, fp32blas "
-              f"{err['fp32blas']:.2e}; cuda {tflops:.2f} TFLOP/s fp64")
+            + f"; device cuda {dev_us['cuda']:.2f} us, plain64 "
+              f"{dev_us['plain64']:.2f} us; max err vs plain64: cuda "
+              f"{err['cuda']:.2e}, fp32blas {err['fp32blas']:.2e}; cuda "
+              f"{tflops:.2f} TFLOP/s fp64 (device time)")
 
 
 def profile_ffn(enh: Enhancer) -> None:

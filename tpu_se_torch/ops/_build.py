@@ -47,6 +47,37 @@ def find_nvcc() -> str:
                        "needed to build tpu_se_torch's kernels")
 
 
+def find_cuobjdump() -> str:
+    """``cuobjdump`` from the toolkit whose ``nvcc`` ``find_nvcc`` finds."""
+    path = pathlib.Path(find_nvcc()).with_name("cuobjdump")
+    if not (path.is_file() and os.access(path, os.X_OK)):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({path})")
+    return str(path)
+
+
+def count_sass_opcode(sass: str, opcode: str) -> dict[str, int]:
+    """Per function of ``cuobjdump -sass`` output, how many instructions
+    start with ``opcode`` (``DMMA`` counts ``DMMA.16x8x8`` and the like)."""
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        counts[name.strip()] = sum(
+            1 for line in body.splitlines()
+            if any(tok == opcode or tok.startswith(opcode + ".")
+                   for tok in line.replace(";", " ").split()))
+    return counts
+
+
+def sass_opcode_counts(opcode: str) -> dict[str, int]:
+    """``count_sass_opcode`` over the built library's SASS (builds it if
+    needed)."""
+    load_library()
+    proc = subprocess.run(
+        [find_cuobjdump(), "-sass", str(library_path(cuda_sources()))],
+        capture_output=True, text=True, check=True)
+    return count_sass_opcode(proc.stdout, opcode)
+
+
 def cuda_sources() -> list[pathlib.Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
@@ -94,6 +125,8 @@ def load_library() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lps_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32, f32, ptr]
     lib.lps_forward.restype = i32
+    lib.lps_grid_blocks.argtypes = [i32, i32]
+    lib.lps_grid_blocks.restype = ctypes.c_longlong
     lib.ggd_output_grad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32,
                                     f32, f32, ptr]
     lib.ggd_output_grad.restype = i32

@@ -6,8 +6,9 @@ pass (``csrc/lps_kernel.cu``).  Unlike the TPU kernel it takes the unpadded
 ``[L, 2K]`` basis and writes ``[T, K]`` directly: no 384-lane padding and no
 slice afterwards, and ``L`` is a parameter, so the 8/11 kHz 256-point
 framings (129 bins) use it too.  The product is summed in float64 on the
-CUDA cores, and only re and im are rounded to float32 before the float32
-epilogue: the LPS is the exact product's to within float32 rounding.
+fp64 tensor cores (``mma.sync`` m16n8k8), and only re and im are rounded
+to float32 before the float32 epilogue: the LPS is the exact product's to
+within float32 rounding.
 
 - ``lps_cuda``  launches the kernel; CUDA tensors only, never falls back.
 - ``lps_plain`` is the same function in plain PyTorch: the CPU path and the
@@ -27,6 +28,14 @@ LOG_FLOOR = -50.0
 # which could differ by an ulp.
 POWER_FLOOR = float(np.float32(np.exp(LOG_FLOOR)))
 
+# The kernel's launch geometry (csrc/lps_kernel.cu): a 1-D grid of blocks
+# of BLOCK_ROWS frames by 8 bins up to SMALL_TILE_MAX_T frames, by 16 bins
+# above; frames advance STAGE_L samples per pipeline stage.
+BLOCK_ROWS = 64
+SMALL_TILE_MAX_T = 2560
+STAGE_L = 32
+INT32_MAX = 2**31 - 1
+
 launches = 0
 
 
@@ -43,8 +52,8 @@ def lps_plain(frames: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """frames [T, L] @ basis [L, 2K] -> floored log power [T, K], in PyTorch.
 
     Like the kernel, the product is summed in float64 and only re/im are
-    rounded to float32: an fp32 sum misses the log power of a bin 60 dB
-    below its frame by ~1e-3 (see ``csrc/lps_kernel.cu``).
+    rounded to float32: an fp32 sum (or TF32) misses the log power of a
+    bin 60 dB below its frame by ~1e-3 (see ``csrc/lps_kernel.cu``).
     """
     n_bins = basis.shape[1] // 2
     spec = (frames.double() @ basis.double()).float()
@@ -52,11 +61,21 @@ def lps_plain(frames: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return floored_log(re * re + im * im)
 
 
+def grid_blocks(t: int, n_bins: int) -> int:
+    """Blocks the kernel launches for ``t`` frames and ``n_bins`` bins: the
+    tile rule of ``lps_forward`` (checked against the library's own
+    ``lps_grid_blocks`` on the card)."""
+    bins = 8 if t <= SMALL_TILE_MAX_T else 16
+    return -(-t // BLOCK_ROWS) * -(-n_bins // bins)
+
+
 def check_lps_args(frames: torch.Tensor, basis: torch.Tensor) -> None:
     """Raise ``ValueError`` unless (frames, basis) is what the kernel takes:
     both CUDA, float32, contiguous, 2-D, on one device, ``basis`` of shape
-    [L, 2K] with ``L == frames.shape[1]``, and the grid within launch limits.
-    The device is checked last, so every other check can be tested on CPU.
+    [L, 2K] with ``L == frames.shape[1]`` a positive multiple of
+    ``STAGE_L``, ``frames`` 16-byte aligned, T within int32 and the grid
+    within the launch limit.  The device is checked last, so every other
+    check can be tested on CPU (or on meta tensors, for the limits).
     """
     for name, x in (("frames", frames), ("basis", basis)):
         if x.dtype != torch.float32:
@@ -72,9 +91,18 @@ def check_lps_args(frames: torch.Tensor, basis: torch.Tensor) -> None:
     if basis.shape[1] % 2 or basis.shape[1] == 0:
         raise ValueError(f"lps_cuda: basis must have 2K columns, got "
                          f"{basis.shape[1]}")
-    if frames.shape[0] > 65535 * 64:
-        raise ValueError(f"lps_cuda: {frames.shape[0]} frames exceed the "
-                         "kernel's grid (65535 * 64)")
+    if frames.shape[1] == 0 or frames.shape[1] % STAGE_L:
+        raise ValueError(f"lps_cuda: frame length {frames.shape[1]} is not "
+                         f"a positive multiple of {STAGE_L}")
+    if frames.data_ptr() % 16:
+        raise ValueError("lps_cuda: frames must be 16-byte aligned")
+    t, n_bins = frames.shape[0], basis.shape[1] // 2
+    if t > INT32_MAX:
+        raise ValueError(f"lps_cuda: {t} frames exceed the kernel's int32 "
+                         "frame count")
+    if grid_blocks(t, n_bins) > INT32_MAX:
+        raise ValueError(f"lps_cuda: {t} frames x {n_bins} bins exceed the "
+                         f"kernel's grid ({INT32_MAX} blocks)")
     for name, x in (("frames", frames), ("basis", basis)):
         if x.device.type != "cuda":
             raise ValueError(f"lps_cuda: {name} must be a CUDA tensor, "
