@@ -45,14 +45,36 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    training is chaotic: any float32 rounding difference grows ~30x every 4
    bunches, and two CPU implementations differ by 5-9 % after one epoch, so
    only a smaller step can hold two devices to each other.);
-8. prints the kernel table as JSON, the card line, and last
+8. pipeline phase: the paper's whole pipeline through the CLI, in-process,
+   at full width, from a 24-sentence 16 kHz noisy/clean wav corpus:
+   ``lps-extract --device cuda --jobs 4`` over the 48 wavs (one LPS kernel
+   launch per file, counted), held against ``--device cpu`` on a copy
+   (identical HTK headers, data within atol 1e-5); ``make-pfile`` with
+   ``--lenfile`` (noisy) and ``--deslenfile`` (clean), ``get-norm``,
+   ``concat-pfile``, ``pfile-info --sents``, ``gen-rand-net`` and
+   ``wts-info``, with their counts checked; two chained ``bptrain`` epochs
+   on ``device=cuda`` from the ``finetune.pl`` strings (the GGD kernel
+   launched once per ML bunch, three finite CV lines in each log, no
+   ``.state.npz``), and ``train --epochs 2`` on the card from the same
+   init and seed, whose ``mlp.1.wts`` and ``mlp.2.wts`` must be
+   byte-identical to the chain's; ``decode --device cuda`` of the 4 CV
+   sentences with the chain's weights and the ``get-norm`` statistics
+   (its enhanced LPS within atol 1e-3 of the CPU's), and ``eval --json``
+   of clean against enhanced (all four metrics finite);
+   prints the phase's wall time and ``lps-extract``'s time per file;
+9. prints the kernel table as JSON (each kernel's launches summed over
+   every path that ran it), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -65,14 +87,16 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from tpu_se_torch.bench.fixtures import (  # noqa: E402
-    SEED, SHIFT, card_line, pad_batch, time_ms, write_fixtures,
-    write_train_fixtures,
+    SEED, SHIFT, card_line, pad_batch, time_ms, write_corpus_fixtures,
+    write_fixtures, write_train_fixtures,
 )
 from tpu_se_torch.cli.main import main as cli_main  # noqa: E402
 from tpu_se_torch.data import PfilePairDataset, plan_chunks  # noqa: E402
 from tpu_se_torch.dsp.analysis import dft_basis  # noqa: E402
 from tpu_se_torch.infer import Enhancer  # noqa: E402
-from tpu_se_torch.io import read_pfile_meta, read_wav, read_wts  # noqa: E402
+from tpu_se_torch.io import (  # noqa: E402
+    read_norm, read_pfile_meta, read_wav, read_wts,
+)
 from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
@@ -97,6 +121,10 @@ GGD_BETAS = (0.5, 0.9, 1.0, 2.0)
 # the sign(e) gradient flips); at 0.001 float32 differences stay ~1e-5.
 TRAIN_DW_RTOL = 1e-3
 TRAIN_CV_RTOL = 1e-4
+# Card against CPU decode of the pipeline's trained model, enhanced LPS in
+# the log domain: the FFN's float32 sums in another order move an output of
+# ~27 by a few ulps (1.9e-6 each) per layer.
+DECODE_LPS_ATOL = 1e-3
 AGREE_LRATE = "0.001"
 BUNCH = 128
 EPOCHS = 2
@@ -107,6 +135,10 @@ RUNS = {
     "quality": (True, ["--blend", "auto", "--smooth-strength", "auto"]),
     "batch4_waves": (False, ["--batch", "4"]),     # int16 fast path
 }
+# The finetune.pl chain: epoch 1's init_randem_seed, and the step it adds
+# for each later epoch (finetune.pl:86,124).
+FINETUNE_SEED = 27870775
+SEED_STEP = 345
 
 
 def tensor_core_check() -> None:
@@ -351,12 +383,12 @@ def run_train(tfx: dict, init_wts: str, out_dir: str, device: str,
 
 
 def ml_bunches(tfx: dict) -> int:
-    """ML bunches the training run takes: sum over the train range's chunks
-    of floor(n_samples / M), times the epochs."""
+    """ML bunches one training epoch takes: sum over the train range's
+    chunks of floor(n_samples / M)."""
     _, _, _, ends = read_pfile_meta(tfx["noisy"])
     lo, hi = (int(x) for x in tfx["train_sents"].split("-"))
     plan = plan_chunks(ends, (lo, hi), tfx["traincache"])
-    return int(sum(int(n) // BUNCH for n in plan.n_samples)) * EPOCHS
+    return int(sum(int(n) // BUNCH for n in plan.n_samples))
 
 
 def train_phase(dev, root: str) -> dict:
@@ -369,7 +401,7 @@ def train_phase(dev, root: str) -> dict:
           f"fixtures {tfx['train_sents']} train / {tfx['cv_sents']} CV "
           f"sentences, traincache {tfx['traincache']}")
 
-    want = ml_bunches(tfx)
+    want = ml_bunches(tfx) * EPOCHS
     ggd_kernel.launches = 0
     t0 = time.perf_counter()
     run_train(tfx, init_wts, os.path.join(root, "cuda"), "cuda")
@@ -445,12 +477,294 @@ def train_rate(dev, tfx: dict, init_wts: str) -> float:
                     device_frames=frames, log=lambda s: None)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    samples = ml_bunches(tfx) // EPOCHS * BUNCH
+    samples = ml_bunches(tfx) * BUNCH
     print(f"train   epoch 1 on the card, no CV: {samples} samples in "
           f"{dt:.4f} s = {samples / dt:.0f} samples/s "
           f"({samples // BUNCH} bunches, {dt / (samples // BUNCH) * 1e3:.3f} "
           f"ms per bunch)")
     return samples / dt
+
+
+def cli(argv: list) -> str:
+    """Run the port's CLI in-process; fail on a non-zero exit; -> stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise SystemExit(f"{' '.join(argv[:2])} ... returned {rc}")
+    return out.getvalue()
+
+
+def read_list(path: str) -> list[str]:
+    with open(path) as f:
+        return f.read().split()
+
+
+def write_list(path: str, items: list[str]) -> str:
+    with open(path, "w") as f:
+        f.write("".join(f"{item}\n" for item in items))
+    return path
+
+
+def lps_path(wav: str) -> str:
+    return wav.rsplit(".", 1)[0] + ".lps"
+
+
+def finetune_args(p: dict, init_wts: str, out_dir: str, epoch: int) -> list:
+    """The key=value strings of ``finetune.pl``'s iteration ``epoch``
+    (finetune.pl:50-76, as tests/test_bptrain_cli.py lists them), cut to
+    the corpus: 20 training and 4 CV sentences, traincache 1024."""
+    return [
+        "gpu_used=0", "numlayers=4", "layersizes=1799,2048,2048,2048,257",
+        "bunchsize=128", "MLflag=1", "shapefactor=1", "momentum=0.9",
+        "weightcost=0.00001", "lrate=0.1", "fea_dim=257", "fea_context=7",
+        f"traincache={p['traincache']}",
+        f"init_randem_seed={FINETUNE_SEED + SEED_STEP * (epoch - 1)}",
+        "targ_offset=3", f"initwts_file={init_wts}",
+        f"norm_file={p['norm']}", f"fea_file={p['noisy']}",
+        f"targ_file={p['clean']}",
+        f"outwts_file={out_dir}/mlp.{epoch}.wts",
+        f"log_file={out_dir}/mlp.{epoch}.log",
+        f"train_sent_range={p['train_sents']}",
+        f"cv_sent_range={p['cv_sents']}",
+        "dropoutflag=0", "visible_omit=0.1", "hid_omit=0.1", "device=cuda"]
+
+
+def extract_lps(root: str, cx: dict) -> tuple[int, dict]:
+    """``lps-extract`` over the corpus on the card (``--jobs 4``), then on
+    the CPU over a copy; holds the two sets of ``.lps`` files to each
+    other.  -> (LPS kernel launches of the card runs, ms per file)."""
+    cpu_scp = {}
+    for kind in ("noisy", "clean"):
+        cpu_dir = os.path.join(root, "cpu", kind)
+        shutil.copytree(cx[f"{kind}_dir"], cpu_dir)
+        cpu_scp[kind] = write_list(
+            os.path.join(root, "cpu", f"{kind}.scp"),
+            [os.path.join(cpu_dir, os.path.basename(w))
+             for w in read_list(cx[f"{kind}_scp"])])
+    wavs = read_list(cx["noisy_scp"]) + read_list(cx["clean_scp"])
+
+    ms = {}
+    lps_kernel.launches = 0
+    t0 = time.perf_counter()
+    for kind in ("noisy", "clean"):
+        cli(["lps-extract", "--scp", cx[f"{kind}_scp"], "--device", "cuda",
+             "--jobs", "4"])
+    torch.cuda.synchronize()
+    ms["cuda"] = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    launches = lps_kernel.launches
+    print(f"pipe    lps-extract --device cuda --jobs 4: {len(wavs)} files, "
+          f"{ms['cuda']:.3f} ms per file; lps_kernel.launches = {launches}")
+    if launches != len(wavs):
+        raise SystemExit(f"lps-extract launched the LPS kernel {launches} "
+                         f"times for {len(wavs)} files")
+
+    t0 = time.perf_counter()
+    for kind in ("noisy", "clean"):
+        cli(["lps-extract", "--scp", cpu_scp[kind], "--device", "cpu",
+             "--jobs", "4"])
+    ms["cpu"] = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    worst = 0.0
+    for wav in wavs:
+        with open(lps_path(wav), "rb") as f:
+            got = f.read()
+        cpu_wav = os.path.join(root, "cpu", os.path.basename(
+            os.path.dirname(wav)), os.path.basename(wav))
+        with open(lps_path(cpu_wav), "rb") as f:
+            want = f.read()
+        if got[:12] != want[:12] or len(got) != len(want):
+            raise SystemExit(f"{wav}: card and CPU .lps headers or sizes "
+                             "differ")
+        a, b = (np.frombuffer(x[12:], ">f4") for x in (got, want))
+        if not np.isfinite(a).all():
+            raise SystemExit(f"{wav}: non-finite LPS from the card")
+        worst = max(worst, float(np.abs(a - b).max()))
+    print(f"pipe    lps-extract --device cpu: {ms['cpu']:.3f} ms per file; "
+          f"headers identical, max |cuda-cpu| = {worst:.3e}")
+    if not worst <= LPS_ATOL:
+        raise SystemExit(f"card .lps differ from the CPU's by {worst:.3e}")
+    return launches, ms
+
+
+def pack(root: str, cx: dict) -> dict:
+    """``make-pfile`` (noisy with --lenfile, clean with --deslenfile),
+    ``get-norm``, ``concat-pfile`` and ``pfile-info --sents``."""
+    n = len(read_list(cx["noisy_scp"]))
+    p = {k: os.path.join(root, name) for k, name in (
+        ("noisy", "noisy.pfile"), ("clean", "clean.pfile"),
+        ("len", "frame_numbers.len"), ("norm", "noisy.norm"),
+        ("both", "both.pfile"))}
+    scp = {kind: write_list(os.path.join(root, f"{kind}_lps.scp"),
+                            [lps_path(w) for w in read_list(cx[f"{kind}_scp"])])
+           for kind in ("noisy", "clean")}
+    cli(["make-pfile", scp["noisy"], "-o", p["noisy"], "--lenfile", p["len"],
+         "--jobs", "4"])
+    cli(["make-pfile", scp["clean"], "-o", p["clean"],
+         "--deslenfile", p["len"]])
+    cli(["get-norm", p["noisy"], "-o", p["norm"]])
+    lens = [int(x) for x in read_list(p["len"])]
+    total = sum(lens)
+    for name in ("noisy", "clean"):
+        got = read_pfile_meta(p[name])[:3]
+        if len(lens) != n or got != (n, total, 257):
+            raise SystemExit(f"{name} pfile holds {got}, lenfile {len(lens)} "
+                             f"sentences of {total} frames")
+    mean, inv_std = read_norm(p["norm"])
+    if mean.shape != (257,) or not (np.isfinite(mean).all()
+                                    and np.isfinite(inv_std).all()):
+        raise SystemExit("get-norm wrote no finite 257-dim statistics")
+    cli(["concat-pfile", p["noisy"], p["clean"], "-o", p["both"]])
+    if read_pfile_meta(p["both"])[:3] != (2 * n, 2 * total, 257):
+        raise SystemExit(f"concat-pfile: {read_pfile_meta(p['both'])[:3]}")
+    info = cli(["pfile-info", "--sents", p["noisy"]]).splitlines()
+    want = ([f"{p['noisy']}: {n} sentences, {total} frames, 257 features"]
+            + [f"  sentence {i}: {t} frames" for i, t in enumerate(lens)])
+    if info != want:
+        raise SystemExit(f"pfile-info --sents printed {info[:3]} ...")
+    print(f"pipe    make-pfile/get-norm/concat-pfile/pfile-info: {n} "
+          f"sentences, {total} frames x 257; concat {2 * n} sentences")
+    return {**p, "train_sents": cx["train_sents"], "cv_sents": cx["cv_sents"],
+            "traincache": cx["traincache"]}
+
+
+def check_log(path: str) -> list[float]:
+    """A bptrain log's three CV values, which must be finite, and its
+    device and time lines."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    values = [float(line.split(":")[1]) for line in lines if line.startswith((
+        "CV over. squared error:", "CV over. square root squared error:",
+        "CV2 over. CV log likelihood:"))]
+    if len(values) != 3 or not all(math.isfinite(v) for v in values):
+        raise SystemExit(f"{path}: CV lines {values}")
+    if not any(line.startswith("torch device: cuda (") for line in lines) or \
+            not any(line.startswith("Total cost time: ") for line in lines):
+        raise SystemExit(f"{path}: no card device line or no time line")
+    return values
+
+
+def chain(root: str, p: dict) -> int:
+    """``gen-rand-net``, ``wts-info``, two chained ``bptrain`` epochs on the
+    card and ``train --epochs 2`` from the same init and seed.
+    -> GGD kernel launches of the chain and of ``train``."""
+    init = os.path.join(root, "init.wts")
+    cli(["gen-rand-net", "-o", init, "--seed", str(SEED)])
+    params = sum(layer["w"].size + layer["b"].size for layer in read_wts(init))
+    info = cli(["wts-info", init])
+    if f"  total: {params} parameters " not in info:
+        raise SystemExit(f"wts-info: no 'total: {params} parameters' in "
+                         f"{info!r}")
+    want = ml_bunches(p)
+    out = os.path.join(root, "chain")
+    os.makedirs(out)
+    launches = 0
+    for epoch in (1, 2):
+        start = init if epoch == 1 else os.path.join(out, "mlp.1.wts")
+        ggd_kernel.launches = 0
+        t0 = time.perf_counter()
+        cli(["bptrain", *finetune_args(p, start, out, epoch)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        values = check_log(os.path.join(out, f"mlp.{epoch}.log"))
+        print(f"pipe    bptrain epoch {epoch} on the card: {dt:.2f} s; "
+              f"ggd_kernel.launches = {ggd_kernel.launches}, ML bunches = "
+              f"{want}; CV squared error, abs, GGD loglik = {values}")
+        if ggd_kernel.launches != want:
+            raise SystemExit(f"bptrain epoch {epoch}: GGD kernel launched "
+                             f"{ggd_kernel.launches} times for {want} bunches")
+        launches += ggd_kernel.launches
+    sidecars = [f for d in (root, out) for f in os.listdir(d)
+                if f.endswith(".state.npz")]
+    if sidecars:
+        raise SystemExit(f"bptrain wrote state sidecars: {sidecars}")
+
+    ggd_kernel.launches = 0
+    cli(["train", "--fea-file", p["noisy"], "--targ-file", p["clean"],
+         "--norm-file", p["norm"], "--init-wts", init,
+         "--out-dir", os.path.join(root, "train"),
+         "--train-sents", p["train_sents"], "--cv-sents", p["cv_sents"],
+         "--traincache", str(p["traincache"]), "--seed", str(FINETUNE_SEED),
+         "--epochs", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    if ggd_kernel.launches != 2 * want:
+        raise SystemExit(f"train: GGD kernel launched {ggd_kernel.launches} "
+                         f"times for {2 * want} bunches")
+    launches += ggd_kernel.launches
+    for name in ("mlp.1.wts", "mlp.2.wts"):
+        with open(os.path.join(out, name), "rb") as f1, \
+                open(os.path.join(root, "train", name), "rb") as f2:
+            if f1.read() != f2.read():
+                raise SystemExit(f"bptrain chain and train --epochs 2 "
+                                 f"differ in {name}")
+    print("pipe    train --epochs 2 on the card: mlp.1.wts and mlp.2.wts "
+          "byte-identical to the bptrain chain's")
+    return launches
+
+
+def enhance_and_score(root: str, cx: dict, p: dict) -> int:
+    """``decode --device cuda`` of the CV sentences with the chain's weights
+    and the ``get-norm`` statistics, then ``eval --json`` against the clean
+    wavs.  -> LPS kernel launches of the decode."""
+    lo, hi = (int(x) for x in p["cv_sents"].split("-"))
+    noisy = read_list(cx["noisy_scp"])[lo:hi + 1]
+    clean = read_list(cx["clean_scp"])[lo:hi + 1]
+    out = os.path.join(root, "enhanced")
+    lps_kernel.launches = 0
+    cli(["decode", *noisy, "--wts", os.path.join(root, "chain", "mlp.2.wts"),
+         "--norm", p["norm"], "--out-dir", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = lps_kernel.launches
+    if launches <= 0:
+        raise SystemExit("decode of the CV sentences launched no LPS kernel")
+    enhanced = [os.path.join(out, os.path.splitext(os.path.basename(w))[0]
+                             + "_enhanced.wav") for w in noisy]
+
+    # Two epochs at lrate 0.1 leave a model that speaks far louder than the
+    # clean speech: its float waves leave the int16 range and wrap, so the
+    # card's and the CPU's int16 waves differ after the wrap by far more
+    # than 1 LSB.  The decode of this model is held to the CPU's by its
+    # enhanced LPS (float32 GEMMs summed in another order).
+    wts = os.path.join(root, "chain", "mlp.2.wts")
+    card = Enhancer(wts, p["norm"], device="cuda")
+    host = Enhancer(wts, p["norm"], device="cpu")
+    worst, loud, clean_peak = 0.0, 0.0, 0
+    for path, clean_path in zip(noisy, clean):
+        wave = read_wav(path)[0]
+        _, recon, enh = card.enhance(wave)
+        worst = max(worst, float(np.abs(enh - host.enhance(wave)[2]).max()))
+        loud = max(loud, float(np.abs(recon).max()))
+        clean_peak = max(clean_peak, int(np.abs(
+            read_wav(clean_path)[0].astype(np.int32)).max()))
+    print(f"pipe    decode of {len(noisy)} CV sentences: max |enhanced LPS "
+          f"cuda-cpu| = {worst:.3e}; peak |recon frame| {loud:.1f}, clean "
+          f"peak {clean_peak}")
+    if not worst <= DECODE_LPS_ATOL:
+        raise SystemExit(f"the chain's model decodes {worst:.3e} away from "
+                         "the CPU's enhanced LPS")
+    text = cli(["eval", "--json", "--clean", *clean, "--test", *enhanced])
+    rows = [json.loads(line) for line in text.splitlines()]
+    for row in rows:
+        print(f"pipe    eval {json.dumps(row)}")
+    if [r["name"] for r in rows] != enhanced + ["mean"] or not all(
+            math.isfinite(r[m]) for r in rows
+            for m in ("segsnr", "lsd", "stoi", "pesq")):
+        raise SystemExit("eval: rows missing or metrics not finite")
+    return launches
+
+
+def pipeline_phase(root: str) -> dict:
+    """wav -> .lps -> pfile -> .norm -> bptrain chain -> decode -> eval,
+    through the CLI on the card."""
+    t0 = time.perf_counter()
+    cx = write_corpus_fixtures(os.path.join(root, "corpus"), SEED)
+    lps_launches, ms = extract_lps(root, cx)
+    p = pack(root, cx)
+    ggd_launches = chain(root, p)
+    lps_launches += enhance_and_score(root, cx, p)
+    seconds = time.perf_counter() - t0
+    print(f"pipe    pipeline phase wall time: {seconds:.2f} s")
+    return {"lps_launches": lps_launches, "ggd_launches": ggd_launches,
+            "seconds": seconds, "ms_per_file": ms}
 
 
 def main() -> int:
@@ -481,6 +795,7 @@ def main() -> int:
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
         train = train_phase(dev, root)
+        pipe = pipeline_phase(os.path.join(root, "pipeline"))
 
     cuda_ms, plain_ms = kern["times"][len(ts) * max(ts)]
     ggd_ms, ggd_plain_ms = ggd["times"][BUNCH]
@@ -488,12 +803,14 @@ def main() -> int:
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": launches + pipe["lps_launches"],
+        "max_abs_err": kern["max_abs_err"],
         "ms": cuda_ms, "plain_ms": plain_ms}, {
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": train["launches"], "max_abs_err": ggd["max_abs_err"],
+        "launches": train["launches"] + pipe["ggd_launches"],
+        "max_abs_err": ggd["max_abs_err"],
         "ms": ggd_ms, "plain_ms": ggd_plain_ms}]}))
     print(f"card    {card}")
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,12 @@ def test_port_imports_no_jax():
             "import tpu_se_torch, tpu_se_torch.infer, tpu_se_torch.cli.main\n"
             "import tpu_se_torch.dsp, tpu_se_torch.models, tpu_se_torch.ops\n"
             "import tpu_se_torch.io, tpu_se_torch.bench.profile_decode\n"
+            "import tpu_se_torch.cli.bptrain, tpu_se_torch.infer.evaluate\n"
+            "import tpu_se_torch.infer.stoi, tpu_se_torch.infer.pesq\n"
+            "import tpu_se_torch.io.atomic, tpu_se_torch.io.wav\n"
+            "import tpu_se_torch.io.htk, tpu_se_torch.io.pfile\n"
+            "import tpu_se_torch.io.norm, tpu_se_torch.io.wts\n"
+            "import tpu_se_torch.io.readahead\n"
             "import tpu_se_torch.train, tpu_se_torch.data\n"
             "import tpu_se_torch.losses, tpu_se_torch.utils.logging\n"
             "import chip_smoke\n"

@@ -6,7 +6,8 @@
 (harmonic tones under an envelope, plus seeded noise), their ``.norm``,
 and the two ``.scp`` lists.  ``write_train_fixtures`` makes a training
 set the same way: a noisy/clean LPS pfile pair of 24 sentences and the
-noisy ``.norm``.
+noisy ``.norm``; ``write_corpus_fixtures`` writes those 24 sentences as
+noisy/clean wavs instead, the input of the feature-preparation CLI.
 """
 
 from __future__ import annotations
@@ -102,22 +103,29 @@ def _int16(wave: np.ndarray) -> np.ndarray:
     return np.clip(wave, -32768, 32767).astype(np.int16)
 
 
-def write_train_fixtures(root: str, seed: int = SEED) -> dict:
-    """Write a synthetic training set under ``root``.
-
-    ``TRAIN_SENTENCES`` seeded sentences of 2-4 s (tones plus noise, as
-    ``write_fixtures``), their LPS from the port's CPU ``wav_to_lps`` in a
-    noisy and a clean pfile, and the noisy statistics as ``.norm``.
-    Returns the paths (``noisy``, ``clean``, ``norm``) and the ``train``
-    command's ``train_sents``, ``cv_sents`` and ``traincache``.
-    """
+def _corpus(seed: int):
+    """The training set's ``TRAIN_SENTENCES`` seeded sentences of 2-4 s, in
+    order: (clean, noisy) int16 waves at 16 kHz."""
     rng = np.random.default_rng(seed)
-    noisy_lps, clean_lps = [], []
     for i in range(TRAIN_SENTENCES):
         n = int(rng.integers(2 * SAMPLE_RATE, 4 * SAMPLE_RATE + 1))
         clean, noisy = _voiced(n, 90.0 + 7.0 * i, rng)
-        clean_lps.append(wav_to_lps(_int16(clean), device="cpu"))
-        noisy_lps.append(wav_to_lps(_int16(noisy), device="cpu"))
+        yield _int16(clean), _int16(noisy)
+
+
+def write_train_fixtures(root: str, seed: int = SEED) -> dict:
+    """Write a synthetic training set under ``root``.
+
+    The ``_corpus`` sentences (tones plus noise, as ``write_fixtures``),
+    their LPS from the port's CPU ``wav_to_lps`` in a noisy and a clean
+    pfile, and the noisy statistics as ``.norm``.  Returns the paths
+    (``noisy``, ``clean``, ``norm``) and the ``train`` command's
+    ``train_sents``, ``cv_sents`` and ``traincache``.
+    """
+    noisy_lps, clean_lps = [], []
+    for clean, noisy in _corpus(seed):
+        clean_lps.append(wav_to_lps(clean, device="cpu"))
+        noisy_lps.append(wav_to_lps(noisy, device="cpu"))
     paths = {k: os.path.join(root, f"train_{k}.{ext}") for k, ext in
              (("noisy", "pfile"), ("clean", "pfile"), ("norm", "norm"))}
     write_pfile(paths["noisy"], noisy_lps)
@@ -125,6 +133,36 @@ def write_train_fixtures(root: str, seed: int = SEED) -> dict:
     frames = np.concatenate(noisy_lps)
     write_norm(paths["norm"], frames.mean(axis=0), 1.0 / frames.std(axis=0))
     return {**paths, "train_sents": TRAIN_SENTS, "cv_sents": CV_SENTS,
+            "traincache": TRAINCACHE}
+
+
+def write_corpus_fixtures(root: str, seed: int = SEED) -> dict:
+    """Write the training set's sentences as a wav corpus under ``root``.
+
+    The same ``_corpus`` sentences as ``write_train_fixtures``, as 16 kHz
+    wavs ``noisy/sNN.wav`` and ``clean/sNN.wav``, with the lists
+    ``noisy.scp`` and ``clean.scp``: the input of the feature-preparation
+    CLI (``lps-extract`` -> ``make-pfile``), which then packs the same LPS
+    as ``write_train_fixtures``.  Returns the two directories
+    (``noisy_dir``, ``clean_dir``), the two lists (``noisy_scp``,
+    ``clean_scp``) and the ``train_sents``, ``cv_sents`` and ``traincache``
+    of the training set.
+    """
+    out = {}
+    lists = {"noisy": [], "clean": []}
+    for kind in lists:
+        out[f"{kind}_dir"] = os.path.join(root, kind)
+        os.makedirs(out[f"{kind}_dir"], exist_ok=True)
+    for i, (clean, noisy) in enumerate(_corpus(seed)):
+        for kind, wave in (("clean", clean), ("noisy", noisy)):
+            path = os.path.join(out[f"{kind}_dir"], f"s{i:02d}.wav")
+            write_wav(path, wave, SAMPLE_RATE)
+            lists[kind].append(path)
+    for kind, paths in lists.items():
+        out[f"{kind}_scp"] = os.path.join(root, f"{kind}.scp")
+        with open(out[f"{kind}_scp"], "w") as f:
+            f.write("\n".join(paths) + "\n")
+    return {**out, "train_sents": TRAIN_SENTS, "cv_sents": CV_SENTS,
             "traincache": TRAINCACHE}
 
 
