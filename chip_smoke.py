@@ -17,7 +17,8 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    rows (which must give exactly -50); atol 1e-5 in the log domain, and a
    rerun must be bitwise equal; times both, with the kernel's fp64
    TFLOP/s, at T in {256, 992, 3968, 4096, 16384} and the batched
-   decode's shape;
+   decode's shape, by events and, beside the kernel's bound, by device
+   time (CUDA-graph replay);
 5. slice phase: writes a full-width (1799, 2048, 2048, 2048, 257) random
    model, four 16 kHz noisy/clean wav pairs and their ``.norm``, then runs
    ``python -m tpu_se_torch decode`` in-process on the card (plain,
@@ -28,10 +29,14 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    device-only batched decode;
 6. GGD kernel phase: ``ggd_output_grad_cuda`` against
    ``ggd_output_grad_plain`` on the card for M in {1, 7, 128, 1000, 4096,
-   16384}, D in {257, 129, 5}, beta in {0.5, 0.9, 1, 2}, on seeded inputs
-   with rows where out == targ and one column equal throughout (exactly 0
-   in dedx, alpha exactly 0 there); rtol 5e-6 on alpha and dedx; a rerun
-   must be bitwise equal; times both at M = 128 and 4096, D = 257;
+   16384} and both sides of each switch of the launcher's plan, D in
+   {257, 129, 5}, beta in {0.5, 0.9, 1, 2}, on seeded inputs with rows
+   where out == targ and one column equal throughout (exactly 0 in dedx,
+   alpha exactly 0 there); rtol 5e-6 on alpha and dedx; a rerun must be
+   bitwise equal, and so must beta = 1 (no ``powf``) and the general path
+   at beta = 1; times both at M = 128 and 4096, D = 257, by events and by
+   device time (CUDA-graph replay), beside the byte bound and an empty
+   kernel launched the same way;
 7. training phase: writes a 24-sentence synthetic LPS pfile pair and a
    full-width initial ``.wts`` (``python -m tpu_se_torch gen-rand-net``),
    runs ``python -m tpu_se_torch train --epochs 2`` in-process on the card
@@ -63,7 +68,8 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    of clean against enhanced (all four metrics finite);
    prints the phase's wall time and ``lps-extract``'s time per file;
 9. prints the kernel table as JSON (each kernel's launches summed over
-   every path that ran it), the card line, and last
+   every path that ran it; its device time, its plain version's and its
+   bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -87,8 +93,8 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from tpu_se_torch.bench.fixtures import (  # noqa: E402
-    SEED, SHIFT, card_line, pad_batch, time_ms, write_corpus_fixtures,
-    write_fixtures, write_train_fixtures,
+    SEED, SHIFT, card_line, device_us, pad_batch, time_ms,
+    write_corpus_fixtures, write_fixtures, write_train_fixtures,
 )
 from tpu_se_torch.cli.main import main as cli_main  # noqa: E402
 from tpu_se_torch.data import PfilePairDataset, plan_chunks  # noqa: E402
@@ -114,6 +120,10 @@ LPS_ATOL = 1e-5
 # powf against torch.pow (the CPU check of plain against JAX saw 6.4e-7).
 GGD_RTOL = 5e-6
 GGD_BETAS = (0.5, 0.9, 1.0, 2.0)
+# The card's published peaks (NVIDIA H100 SXM at 700 W) that the kernels'
+# bounds are stated against: device memory, and fp64 on the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP64_TENSOR_FLOPS = 67e12
 # Card against CPU training, 2 epochs at AGREE_LRATE: relative difference
 # of the weight CHANGES per layer and of the CV metrics.  At the default
 # lrate 0.1 the full-width ML-GGD run is chaotic (the 257 outputs sum 2048
@@ -191,12 +201,32 @@ def kernel_phase(dev, decode_rows: list[int]) -> dict:
             np.float32)).to(dev)
         cuda_ms = time_ms(lambda: lps_kernel.lps_cuda(x, basis))
         plain_ms = time_ms(lambda: lps_kernel.lps_plain(x, basis))
-        times[t] = (cuda_ms, plain_ms)
         tflops = 2 * t * 512 * 514 / (cuda_ms * 1e-3) / 1e12
         print(f"kernel  T={t:5d} L=512: lps_cuda {cuda_ms * 1e3:.1f} "
               f"us/call ({tflops:.1f} TFLOP/s fp64), lps_plain "
               f"{plain_ms * 1e3:.1f} us/call")
+        dev_ms = device_us(lambda: lps_kernel.lps_cuda(x, basis)) / 1e3
+        dev_plain_ms = device_us(lambda: lps_kernel.lps_plain(x, basis)) / 1e3
+        bound_ms, bound_by = lps_bound_ms(t, 512, 257)
+        times[t] = {"ms": dev_ms, "plain_ms": dev_plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"kernel  T={t:5d} L=512: device time lps_cuda "
+              f"{dev_ms * 1e3:.2f} us, lps_plain {dev_plain_ms * 1e3:.2f} us; "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+              f"{bound_ms / dev_ms:.0%} of it reached")
     return {"max_abs_err": max_err, "times": times}
+
+
+def lps_bound_ms(t: int, length: int, n_bins: int) -> tuple[float, str]:
+    """The least the card could take for [t, length] frames: the larger of
+    the product's 2 * t * length * 2 * n_bins fp64 operations at the tensor
+    cores' peak and of frames + basis read, LPS written, at the memory
+    rate."""
+    ops_ms = 2 * t * length * 2 * n_bins / FP64_TENSOR_FLOPS * 1e3
+    moved = 4 * (t * length + length * 2 * n_bins + t * n_bins)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
 
 
 def run_decode(fx: dict, out_dir: str, device: str, clean: bool,
@@ -300,11 +330,22 @@ def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).abs()[nz] / want.abs()[nz]).max().item()
 
 
+def ggd_bound_ms(m: int, d: int) -> float:
+    """The least the card could take for an [m, d] bunch: out and targ read
+    once, dedx and alpha written once, at the memory rate (the arithmetic,
+    a few operations per element, is far below it)."""
+    return 4 * (3 * m * d + d) / HBM_BYTES_PER_S * 1e3
+
+
 def ggd_phase(dev) -> dict:
     rng = np.random.default_rng(SEED)
+    lib, _ = load_library()
     worst = 0.0
     max_abs = 0.0
-    for m in (1, 7, 128, 1000, 4096, 16384):
+    switch = [m for last in ggd_kernel.PLAN_SWITCH_ROWS
+              for m in (last, last + 1)]
+    for m in sorted({1, 7, 128, 1000, 4096, 16384, *switch}):
+        plan = ggd_kernel.plan(m, 257)
         for d in (257, 129, 5):
             out_np, targ_np = ggd_inputs(rng, m, d)
             out = torch.from_numpy(out_np).to(dev)
@@ -335,23 +376,55 @@ def ggd_phase(dev) -> dict:
                 max_abs = max(max_abs,
                               (dedx - want_d).abs().max().item(),
                               (alpha - want_a).abs().max().item())
+            # beta = 1 skips powf; the general path takes it: same bits.
+            dedx, alpha = ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0)
+            gen_d, gen_a = ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0,
+                                                           general=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(dedx, gen_d) and torch.equal(alpha, gen_a)):
+                differ = int((dedx != gen_d).sum() + (alpha != gen_a).sum())
+                raise SystemExit(
+                    f"beta=1 shortcut differs from the general path at M={m} "
+                    f"D={d}: {differ} values, max |diff| "
+                    f"{(dedx - gen_d).abs().max().item():.3e}")
             print(f"ggd     M={m:5d} D={d:3d}: max rel |cuda-plain| over "
                   f"beta {GGD_BETAS} = "
                   f"{', '.join(f'{e:.2e}' for e in errs)}; zeros exact, "
-                  f"rerun bitwise equal")
+                  f"rerun bitwise equal, beta=1 shortcut bitwise equal to "
+                  f"the general path; plan: strips of {plan.cols} columns x "
+                  f"{plan.cluster} blocks of {plan.rows_per_block} rows, "
+                  f"{plan.threads} threads, keep={plan.keep}")
     times = {}
     for m in (128, 4096):
         out_np, targ_np = ggd_inputs(rng, m, 257)
         out = torch.from_numpy(out_np).to(dev)
         targ = torch.from_numpy(targ_np).to(dev)
-        cuda_ms = time_ms(lambda: ggd_kernel.ggd_output_grad_cuda(out, targ,
-                                                                  1.0))
-        plain_ms = time_ms(lambda: ggd_kernel.ggd_output_grad_plain(out, targ,
-                                                                    1.0))
-        times[m] = (cuda_ms, plain_ms)
+
+        def kernel():
+            return ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0)
+
+        def plain():
+            return ggd_kernel.ggd_output_grad_plain(out, targ, 1.0)
+
+        def empty():
+            lib.ggd_launch_floor(m, 257,
+                                 torch.cuda.current_stream().cuda_stream)
+
+        cuda_ms, plain_ms = time_ms(kernel), time_ms(plain)
+        dev_ms, dev_plain_ms = device_us(kernel) / 1e3, device_us(plain) / 1e3
+        floor_us = device_us(empty)
+        bound_ms = ggd_bound_ms(m, 257)
+        times[m] = {"ms": dev_ms, "plain_ms": dev_plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes"}
         print(f"ggd     M={m:5d} D=257 beta=1: ggd_output_grad_cuda "
               f"{cuda_ms * 1e3:.1f} us/call, ggd_output_grad_plain "
               f"{plain_ms * 1e3:.1f} us/call")
+        print(f"ggd     M={m:5d} D=257 beta=1: device time "
+              f"ggd_output_grad_cuda {dev_ms * 1e3:.2f} us, "
+              f"ggd_output_grad_plain {dev_plain_ms * 1e3:.2f} us, an empty "
+              f"kernel launched the same way {floor_us:.2f} us; bound "
+              f"{bound_ms * 1e3:.2f} us (bytes), {bound_ms / dev_ms:.0%} of "
+              f"it reached")
     return {"max_rel_err": worst, "max_abs_err": max_abs, "times": times}
 
 
@@ -797,21 +870,22 @@ def main() -> int:
         train = train_phase(dev, root)
         pipe = pipeline_phase(os.path.join(root, "pipeline"))
 
-    cuda_ms, plain_ms = kern["times"][len(ts) * max(ts)]
-    ggd_ms, ggd_plain_ms = ggd["times"][BUNCH]
+    # Device time (CUDA-graph replay) at the main path's shapes: the
+    # batched decode's rows, the parity bunch.  Neither kernel's function
+    # is one PyTorch call, so there is no library time.
     print(json.dumps({"kernels": [{
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": launches + pipe["lps_launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": cuda_ms, "plain_ms": plain_ms}, {
+        **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
         "launches": train["launches"] + pipe["ggd_launches"],
         "max_abs_err": ggd["max_abs_err"],
-        "ms": ggd_ms, "plain_ms": ggd_plain_ms}]}))
+        **ggd["times"][BUNCH], "library_ms": None}]}))
     print(f"card    {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,14 @@ e == 0 and the all-zero column must be exactly 0.  The beta-norm gradient
 is held to rtol 1e-6, ``ref_gamma`` and ``ggd_loglik`` to 1e-12 where the
 float32 sums are exact.
 
-The CUDA kernel runs only on a card: ``test_ggd_cuda_matches_plain`` is
-marked ``cuda`` and skips without one.  On a card (no JAX there) run
+The CUDA kernel runs only on a card: ``test_ggd_cuda_matches_plain`` and
+``test_ggd_plan_matches_the_library`` are marked ``cuda`` and skip without
+one.  What the CPU can hold of the kernel is held here: ``_kernel_model``
+repeats its float32 summation order in numpy (each thread's rows in order,
+the block's tree over its row threads, the cluster's ranks in order) from
+the launcher's plan, ``plan`` mirrors the launcher's rule, and the
+beta == 1 shortcut is compared with the general formula bit for bit.  On a
+card (no JAX there) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_ggd.py
 
@@ -166,6 +172,126 @@ def test_ggd_loglik_matches_reference_float32(beta):
     assert got == pytest.approx(jax_ggd_loglik(err, alpha, beta), rel=1e-6)
 
 
+def _f32_pow(x, exponent):
+    return np.power(x, np.float32(exponent), dtype=np.float32)
+
+
+def _kernel_model(out, targ, beta, shortcut=True):
+    """csrc/ggd_kernel.cu in numpy float32, sum order and all: thread
+    (ty, column) adds its rows ty, ty + row_threads, ... of the block in
+    order; the block adds its row threads in a halving tree; the ranks are
+    added in order.  ``shortcut`` takes the beta == 1 path where it
+    applies."""
+    m, d = out.shape
+    plan = ggd_kernel.plan(m, d)
+    row_threads = plan.threads // plan.cols
+    one = shortcut and np.float32(beta) == np.float32(1.0)
+    e = out - targ
+    abs_e = np.abs(e)
+    if one:
+        term = abs_e
+    else:
+        term = np.where(e == 0, np.float32(0),
+                        _f32_pow(np.where(e == 0, np.float32(1), abs_e), beta))
+    total = np.zeros(d, np.float32)
+    for rank in range(plan.cluster):
+        rows = term[rank * plan.rows_per_block:
+                    (rank + 1) * plan.rows_per_block]
+        sums = np.zeros((row_threads, d), np.float32)
+        for ty in range(row_threads):
+            mine = rows[ty::row_threads]
+            if len(mine):
+                sums[ty] = np.add.accumulate(mine, axis=0,
+                                             dtype=np.float32)[-1]
+        half = row_threads // 2
+        while half:
+            sums[:half] = sums[:half] + sums[half:2 * half]
+            half //= 2
+        total = total + sums[0]
+    m32 = np.float32(m)
+    mean_term = np.float32(beta) * (total / m32)
+    alpha = mean_term if one else _f32_pow(mean_term, 1.0 / beta)
+    safe = np.where(alpha == 0, np.float32(1), alpha)
+    scale = np.where(alpha == 0, np.float32(0),
+                     np.float32(beta) / (safe if one
+                                         else _f32_pow(safe, beta)))
+    if one:
+        grad = np.copysign(scale / m32, e)
+    else:
+        safe_e = np.where(e == 0, np.float32(1), abs_e)
+        grad = np.copysign(_f32_pow(safe_e, beta - 1.0), e) * scale / m32
+    dedx = np.where(e == 0, np.float32(0), grad)
+    assert dedx.dtype == alpha.dtype == np.float32
+    return dedx, alpha
+
+
+# One M on either side of each plan switch, and the sizes in use.
+MODEL_MS = [1, 7, 128, 1000, 4096,
+            ggd_kernel.PLAN_SWITCH_ROWS[-1] + 1]
+
+
+@pytest.mark.parametrize("d", [257, 5])
+@pytest.mark.parametrize("m", MODEL_MS)
+@pytest.mark.parametrize("beta", BETAS)
+def test_kernel_summation_order_matches_plain_and_reference(beta, m, d):
+    import jax.numpy as jnp
+
+    from tpu_se.ops import ggd_output_grad_reference
+
+    out, targ = _inputs(m, d, seed=m + 7 * d)
+    dedx, alpha = _kernel_model(out, targ, beta)
+    plain_d, plain_a = _plain(out, targ, beta)
+    ref_d, ref_a = ggd_output_grad_reference(jnp.asarray(out),
+                                             jnp.asarray(targ), beta)
+    for want_d, want_a in ((plain_d, plain_a),
+                           (np.asarray(ref_d), np.asarray(ref_a))):
+        np.testing.assert_allclose(dedx, want_d, rtol=GGD_RTOL, atol=0)
+        np.testing.assert_allclose(alpha, want_a, rtol=GGD_RTOL, atol=0)
+    _assert_zeros(dedx, alpha, d)
+    assert np.isfinite(dedx).all() and np.isfinite(alpha).all()
+
+
+@pytest.mark.parametrize("d", [257, 5])
+@pytest.mark.parametrize("m", [7, 128, 1000, 1025])
+def test_beta_one_shortcut_is_bitwise_the_general_formula(m, d):
+    # |e| for |e|^1, +-1 for |e|^0 and (+-1 * scale) / M = +-(scale / M):
+    # exact identities in IEEE float32, so the bits must agree.
+    out, targ = _inputs(m, d, seed=3 * m + d)
+    short_d, short_a = _kernel_model(out, targ, 1.0, shortcut=True)
+    gen_d, gen_a = _kernel_model(out, targ, 1.0, shortcut=False)
+    np.testing.assert_array_equal(short_d.view(np.uint32),
+                                  gen_d.view(np.uint32))
+    np.testing.assert_array_equal(short_a.view(np.uint32),
+                                  gen_a.view(np.uint32))
+
+
+@pytest.mark.parametrize("m,cols,rows,keep", [
+    (1, 32, 1, 1), (7, 32, 1, 1), (128, 32, 16, 1), (1024, 32, 128, 1),
+    (1025, 16, 129, 1), (4096, 16, 512, 1), (12288, 16, 1536, 1),
+    (12289, 16, 1537, 0), (16384, 16, 2048, 0),
+    (2**31 - 1, 16, 2**28, 0),
+])
+def test_plan_rule_at_the_edges(m, cols, rows, keep):
+    # 256 threads and clusters of 8 throughout; strips of 32 columns up to
+    # M = 1024 and of 16 above; the error stays in shared memory while a
+    # block's rows x columns x 4 bytes fit 96 KB.
+    assert ggd_kernel.PLAN_SWITCH_ROWS == (1024, 12288)
+    assert ggd_kernel.plan(m, 257) == ggd_kernel.GgdPlan(cols, 256, 8, rows,
+                                                        keep)
+    assert ggd_kernel.plan(m, 5) == ggd_kernel.plan(m, 257)
+    p = ggd_kernel.plan(m, 257)
+    assert p.rows_per_block * p.cluster >= m > (p.rows_per_block - 1) * 8
+    assert p.keep == (p.rows_per_block * p.cols * 4 <= 96 * 1024)
+
+
+def test_check_ggd_args_accepts_at_the_int32_limit():
+    # Meta tensors pass every check but the device.
+    for shape in ((2**31 - 1, 1), (1, 2**31 - 1)):
+        x = torch.empty(shape, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            ggd_kernel.check_ggd_args(x, x)
+
+
 def _args(**change):
     args = {"out": torch.zeros(4, 257), "targ": torch.zeros(4, 257)}
     args.update(change)
@@ -179,11 +305,13 @@ def _args(**change):
     (*_args(targ=torch.zeros(257, 4).t()), "contiguous"),
     (*_args(targ=torch.zeros(4, 256)), "differ in shape"),
     (*_args(out=torch.zeros(0, 257), targ=torch.zeros(0, 257)), "empty"),
-    (*_args(out=torch.zeros(65535 * 128 + 1, 1),
-            targ=torch.zeros(65535 * 128 + 1, 1)), "grid"),
+    (torch.empty(2**31, 1, device="meta"),
+     torch.empty(2**31, 1, device="meta"), "int32"),
+    (torch.empty(1, 2**31, device="meta"),
+     torch.empty(1, 2**31, device="meta"), "int32"),
     (*_args(), "CUDA tensor"),
 ], ids=["out-f64", "targ-bf16", "3-D", "non-contiguous", "shape",
-        "empty", "too-many-rows", "cpu"])
+        "empty", "too-many-rows", "too-many-columns", "cpu"])
 def test_check_ggd_args_rejects(out, targ, match):
     with pytest.raises(ValueError, match=match):
         ggd_kernel.check_ggd_args(out, targ)
@@ -197,11 +325,17 @@ def test_ggd_cuda_raises_on_cpu_without_launch():
     assert ggd_kernel.launches == before
 
 
+# Sizes for the card: those in use and both sides of each plan switch.
+CUDA_MS = sorted({1, 7, 128, 1000, 4096, 16384,
+                  *(m for last in ggd_kernel.PLAN_SWITCH_ROWS
+                    for m in (last, last + 1))})
+
+
 @pytest.mark.cuda
 def test_ggd_cuda_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    for m in (1, 7, 128, 1000, 4096, 16384):
+    for m in CUDA_MS:
         for d in (257, 129, 5):
             out_np, targ_np = _inputs(m, d, seed=m * 3 + d)
             out = torch.from_numpy(out_np).cuda()
@@ -220,4 +354,30 @@ def test_ggd_cuda_matches_plain():
                 torch.testing.assert_close(alpha, want_a, rtol=GGD_RTOL,
                                            atol=0)
                 assert torch.equal(dedx, dedx2) and torch.equal(alpha, alpha2)
+                assert bool(torch.isfinite(dedx).all())
                 _assert_zeros(dedx.cpu().numpy(), alpha.cpu().numpy(), d)
+            # beta = 1 skips powf; the general path takes it: same bits.
+            dedx, alpha = ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0)
+            gen_d, gen_a = ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0,
+                                                           general=True)
+            assert torch.equal(dedx, gen_d) and torch.equal(alpha, gen_a)
+            # The numpy model has the kernel's sum order: alpha to the bit.
+            _, model_a = _kernel_model(out_np, targ_np, 1.0)
+            np.testing.assert_array_equal(alpha.cpu().numpy(), model_a)
+
+
+@pytest.mark.cuda
+def test_ggd_plan_matches_the_library():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the library is built there)")
+    import ctypes
+
+    from tpu_se_torch.ops._build import load_library
+
+    lib, _ = load_library()
+    got = (ctypes.c_int * 5)()
+    for m in (1, 7, 8, 9, 128, 1000, 1024, 1025, 4096, 12288, 12289, 16384,
+              2**31 - 1):
+        for d in (1, 5, 16, 17, 129, 257, 1000):
+            lib.ggd_plan(m, d, got)
+            assert tuple(got) == tuple(ggd_kernel.plan(m, d)), (m, d)

@@ -190,12 +190,12 @@ def test_count_sass_opcode_per_function():
         /*0b20*/                   DMMA.16x8x8 R24, R40, R52, R24 ;
         /*0b30*/              @P0 DMMA.16x8x8 R28, R40, R56, R28 ;
         /*0b40*/                   DMUL R2, R4, R6 ;
-\t\tFunction : _ZN12_GLOBAL__N_115ggd_grad_kernelE
+\t\tFunction : _ZN12_GLOBAL__N_110ggd_kernelILi32ELi256ELb1ELb1EEEvPKfS2_PfS3_iiifff
         /*0000*/                   FADD R1, R2, R3 ;
 """
     counts = _build.count_sass_opcode(sass, "DMMA")
     assert counts == {"_ZN12_GLOBAL__N_110lps_kernelINS_7LpsTileE": 2,
-                      "_ZN12_GLOBAL__N_115ggd_grad_kernelE": 0}
+                      "_ZN12_GLOBAL__N_110ggd_kernelILi32ELi256ELb1ELb1EEEvPKfS2_PfS3_iiifff": 0}
     assert _build.count_sass_opcode(sass, "DMUL")[
         "_ZN12_GLOBAL__N_110lps_kernelINS_7LpsTileE"] == 1
 

@@ -82,38 +82,39 @@ def cuda_sources() -> list[pathlib.Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
-def nvcc_command(nvcc: str, sources, output) -> list[str]:
-    """The full ``nvcc`` command line that builds ``sources`` into ``output``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *(str(s) for s in sources)]
+def nvcc_command(nvcc: str, sources, output, defines=()) -> list[str]:
+    """The full ``nvcc`` command line that builds ``sources`` into ``output``
+    (``defines``: extra ``-DNAME=value`` flags, for a bench's variants)."""
+    return [nvcc, *NVCC_FLAGS, *defines, "-o", str(output),
+            *(str(s) for s in sources)]
 
 
-def library_path(sources) -> pathlib.Path:
+def library_path(sources, defines=()) -> pathlib.Path:
     """Where the library for these sources lives: keyed by content + flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpu_se_torch_{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load_library() -> tuple[ctypes.CDLL, str]:
-    """Build (if needed) and load the kernels -> (library, compiler log).
+def build_library(sources, defines=()) -> tuple[pathlib.Path, str]:
+    """Build ``sources`` (if not built yet) -> (library path, compiler log).
 
     The compiler log holds ``-Xptxas -v``'s registers/spills per kernel; it
     is empty when an existing build was reused.  Raises on a missing nvcc or
     a failed compile, with nvcc's output in the message.
     """
-    sources = cuda_sources()
-    lib_path = library_path(sources)
+    lib_path = library_path(sources, defines)
     log = ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(nvcc_command(find_nvcc(), sources, tmp),
-                                  capture_output=True, text=True)
+            proc = subprocess.run(
+                nvcc_command(find_nvcc(), sources, tmp, defines),
+                capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
@@ -121,13 +122,31 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    lib = ctypes.CDLL(str(lib_path))
+    return lib_path, log
+
+
+def bind_ggd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of ``csrc/ggd_kernel.cu``'s C interface."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (lib.ggd_output_grad, lib.ggd_output_grad_general):
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, f32, f32, ptr]
+        fn.restype = i32
+    lib.ggd_plan.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.ggd_plan.restype = None
+    lib.ggd_launch_floor.argtypes = [i32, i32, ptr]
+    lib.ggd_launch_floor.restype = i32
+    return lib
+
+
+@functools.cache
+def load_library() -> tuple[ctypes.CDLL, str]:
+    """Build (if needed) and load the kernels -> (library, compiler log),
+    as ``build_library`` over every ``csrc/*.cu``."""
+    lib_path, log = build_library(cuda_sources())
+    lib = bind_ggd(ctypes.CDLL(str(lib_path)))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lps_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32, f32, ptr]
     lib.lps_forward.restype = i32
     lib.lps_grid_blocks.argtypes = [i32, i32]
     lib.lps_grid_blocks.restype = ctypes.c_longlong
-    lib.ggd_output_grad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32,
-                                    f32, f32, ptr]
-    lib.ggd_output_grad.restype = i32
     return lib, log
