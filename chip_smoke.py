@@ -12,13 +12,14 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
 4. kernel phase: counts the ``DMMA`` (fp64 tensor-core) instructions of
    each LPS kernel in the built library's SASS (``cuobjdump -sass``) and
    fails on 0; ``lps_cuda`` against ``lps_plain`` on the card, for T in
-   {1, 37, 256, 4097}, both sides of the kernel's tile switch and the
-   decode's own shapes, L in {512, 256}, seeded frames x1000 with zeroed
+   {1, 8, 37, 128, 256, 4097} (1, 8 and 128 are the streaming step's),
+   both sides of the kernel's tile switch and the decode's own shapes,
+   L in {512, 256}, seeded frames x1000 with zeroed
    rows (which must give exactly -50); atol 1e-5 in the log domain, and a
    rerun must be bitwise equal; times both, with the kernel's fp64
-   TFLOP/s, at T in {256, 992, 3968, 4096, 16384} and the batched
-   decode's shape, by events and, beside the kernel's bound, by device
-   time (CUDA-graph replay);
+   TFLOP/s, at T in {1, 8, 128, 256, 992, 3968, 4096, 16384} and the
+   batched decode's shape, by events and, beside the kernel's bound and
+   an empty kernel's launch, by device time (CUDA-graph replay);
 5. slice phase: writes a full-width (1799, 2048, 2048, 2048, 257) random
    model, four 16 kHz noisy/clean wav pairs and their ``.norm``, then runs
    ``python -m tpu_se_torch decode`` in-process on the card (plain,
@@ -65,9 +66,28 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    byte-identical to the chain's; ``decode --device cuda`` of the 4 CV
    sentences with the chain's weights and the ``get-norm`` statistics
    (its enhanced LPS within atol 1e-3 of the CPU's), and ``eval --json``
-   of clean against enhanced (all four metrics finite);
-   prints the phase's wall time and ``lps-extract``'s time per file;
-9. prints the kernel table as JSON (each kernel's launches summed over
+   of clean against enhanced (all four metrics finite); the same decode
+   and ``eval`` with the training phase's ``--lrate 0.001`` weights, a
+   model that stays inside int16 (waves within 1 LSB of the CPU's, SegSNR
+   above the overflowing model's -20.0);
+   prints the phase's wall time and ``lps-extract``'s time per file, with
+   the analysis basis uploaded per file and kept on the card;
+9. streaming phase, at the slice phase's full-width model and its four
+   utterances: ``decode --stream 4096 --device cuda`` through the CLI
+   (one captured CUDA graph replayed per hop; replays counted, one LPS
+   kernel launch in each), its waves within 1 int16 LSB of the card's
+   batch decode of the same files and of ``--stream 4096 --device cpu``;
+   8 streams through ``push_many`` (K = 8, int16 wire) with ``blend`` and
+   ``smooth_strength`` ``"auto"``, replayed against the same step run
+   eagerly on the card (outputs and final state bitwise equal) and
+   against the CPU (within 1 LSB); the device launches of one eager and
+   one replayed hop from ``torch.profiler`` (exactly one LPS kernel in
+   each) and where the hop's device time goes; per hop at 1, 8 and 128
+   streams: eager and replayed device time by CUDA events, the replayed
+   hop's profile, wall p50/p99 over 300 ``push`` calls, ``push_many``
+   hops/s with the float and the int16 wire, and the channels of
+   real-time audio that is (a hop is 16 ms at 16 kHz);
+10. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -93,13 +113,16 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 from tpu_se_torch.bench.fixtures import (  # noqa: E402
-    SEED, SHIFT, card_line, device_us, pad_batch, time_ms,
-    write_corpus_fixtures, write_fixtures, write_train_fixtures,
+    SAMPLE_RATE, SEED, SHIFT, card_line, device_us, pad_batch, stream_hops,
+    time_ms, write_corpus_fixtures, write_fixtures, write_train_fixtures,
 )
+from tpu_se_torch.bench.profile_decode import device_profile  # noqa: E402
 from tpu_se_torch.cli.main import main as cli_main  # noqa: E402
 from tpu_se_torch.data import PfilePairDataset, plan_chunks  # noqa: E402
+from tpu_se_torch.dsp import analysis  # noqa: E402
 from tpu_se_torch.dsp.analysis import dft_basis  # noqa: E402
-from tpu_se_torch.infer import Enhancer  # noqa: E402
+from tpu_se_torch.infer import Enhancer, StreamingEnhancer  # noqa: E402
+from tpu_se_torch.infer import streaming  # noqa: E402
 from tpu_se_torch.io import (  # noqa: E402
     read_norm, read_pfile_meta, read_wav, read_wts,
 )
@@ -145,6 +168,12 @@ RUNS = {
     "quality": (True, ["--blend", "auto", "--smooth-strength", "auto"]),
     "batch4_waves": (False, ["--batch", "4"]),     # int16 fast path
 }
+# The streaming phase: the CLI's chunk, the stream counts timed, the hops
+# per push_many chunk, and how many push calls the wall percentiles take.
+STREAM_CHUNK = 4096
+STREAM_COUNTS = (1, 8, 128)
+CHUNK_HOPS = 8
+PUSH_CALLS = 300
 # The finetune.pl chain: epoch 1's init_randem_seed, and the step it adds
 # for each later epoch (finetune.pl:86,124).
 FINETUNE_SEED = 27870775
@@ -168,8 +197,8 @@ def kernel_phase(dev, decode_rows: list[int]) -> dict:
     switch = [lps_kernel.SMALL_TILE_MAX_T, lps_kernel.SMALL_TILE_MAX_T + 1]
     for length in (512, 256):
         basis = dft_basis(length, dev)
-        shapes = ([1, 37, 256, 4097] + switch
-                  + (decode_rows if length == 512 else []))
+        shapes = sorted({*STREAM_COUNTS, 37, 256, 4097, *switch,
+                         *(decode_rows if length == 512 else [])})
         for t in shapes:
             frames = (rng.standard_normal((t, length)) * 1000).astype(
                 np.float32)
@@ -195,8 +224,14 @@ def kernel_phase(dev, decode_rows: list[int]) -> dict:
         torch.cuda.synchronize()
 
     basis = dft_basis(512, dev)
+    lib, _ = load_library()
+    empty_us = device_us(lambda: lib.ggd_launch_floor(
+        BUNCH, 257, torch.cuda.current_stream().cuda_stream))
+    print(f"kernel  an empty kernel launched the same way: device time "
+          f"{empty_us:.2f} us (what a launch costs the card, whatever T)")
     times = {}
-    for t in sorted({256, 992, 3968, 4096, 16384, decode_rows[-1]}):
+    for t in sorted({*STREAM_COUNTS, 256, 992, 3968, 4096, 16384,
+                     decode_rows[-1]}):
         x = torch.from_numpy((rng.standard_normal((t, 512)) * 1000).astype(
             np.float32)).to(dev)
         cuda_ms = time_ms(lambda: lps_kernel.lps_cuda(x, basis))
@@ -530,7 +565,9 @@ def train_phase(dev, root: str) -> dict:
         raise SystemExit(f"card CV metrics differ from the CPU run's by "
                          f"{worst_cv:.3e}")
     return {"launches": launches, "dw_rel": worst_dw, "cv_rel": worst_cv,
-            "samples_per_s": train_rate(dev, tfx, init_wts)}
+            "samples_per_s": train_rate(dev, tfx, init_wts),
+            "quiet": {"wts": os.path.join(root, "cuda_lr", "mlp.2.wts"),
+                      "norm": tfx["norm"]}}
 
 
 def train_rate(dev, tfx: dict, init_wts: str) -> float:
@@ -617,17 +654,32 @@ def extract_lps(root: str, cx: dict) -> tuple[int, dict]:
              for w in read_list(cx[f"{kind}_scp"])])
     wavs = read_list(cx["noisy_scp"]) + read_list(cx["clean_scp"])
 
+    def on_card() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for kind in ("noisy", "clean"):
+            cli(["lps-extract", "--scp", cx[f"{kind}_scp"], "--device",
+                 "cuda", "--jobs", "4"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(wavs)
+
+    # Before: the analysis basis built and uploaded for every file, which
+    # is what a call without the per-device cache does.  After: as shipped.
     ms = {}
+    resident = analysis._resident_basis
+    analysis._resident_basis = resident.__wrapped__
+    try:
+        on_card()                                   # warm: library, files
+        ms["cuda_basis_per_file"] = on_card()
+    finally:
+        analysis._resident_basis = resident
     lps_kernel.launches = 0
-    t0 = time.perf_counter()
-    for kind in ("noisy", "clean"):
-        cli(["lps-extract", "--scp", cx[f"{kind}_scp"], "--device", "cuda",
-             "--jobs", "4"])
-    torch.cuda.synchronize()
-    ms["cuda"] = (time.perf_counter() - t0) * 1e3 / len(wavs)
+    ms["cuda"] = on_card()
     launches = lps_kernel.launches
     print(f"pipe    lps-extract --device cuda --jobs 4: {len(wavs)} files, "
-          f"{ms['cuda']:.3f} ms per file; lps_kernel.launches = {launches}")
+          f"{ms['cuda']:.3f} ms per file with the basis kept on the card, "
+          f"{ms['cuda_basis_per_file']:.3f} ms per file with the basis "
+          f"uploaded per file; lps_kernel.launches = {launches}")
     if launches != len(wavs):
         raise SystemExit(f"lps-extract launched the LPS kernel {launches} "
                          f"times for {len(wavs)} files")
@@ -774,10 +826,26 @@ def chain(root: str, p: dict) -> int:
     return launches
 
 
-def enhance_and_score(root: str, cx: dict, p: dict) -> int:
+def score(clean: list, enhanced: list, label: str) -> list:
+    """``eval --json`` of clean against enhanced -> its rows, all finite."""
+    text = cli(["eval", "--json", "--clean", *clean, "--test", *enhanced])
+    rows = [json.loads(line) for line in text.splitlines()]
+    for row in rows:
+        print(f"pipe    eval ({label}) {json.dumps(row)}")
+    if [r["name"] for r in rows] != enhanced + ["mean"] or not all(
+            math.isfinite(r[m]) for r in rows
+            for m in ("segsnr", "lsd", "stoi", "pesq")):
+        raise SystemExit(f"eval ({label}): rows missing or metrics not "
+                         "finite")
+    return rows
+
+
+def enhance_and_score(root: str, cx: dict, p: dict, quiet: dict) -> int:
     """``decode --device cuda`` of the CV sentences with the chain's weights
     and the ``get-norm`` statistics, then ``eval --json`` against the clean
-    wavs.  -> LPS kernel launches of the decode."""
+    wavs; then both again with ``quiet``, the weights and statistics of a
+    training run whose model stays inside int16.  -> LPS kernel launches
+    of the card's decodes."""
     lo, hi = (int(x) for x in p["cv_sents"].split("-"))
     noisy = read_list(cx["noisy_scp"])[lo:hi + 1]
     clean = read_list(cx["clean_scp"])[lo:hi + 1]
@@ -814,18 +882,46 @@ def enhance_and_score(root: str, cx: dict, p: dict) -> int:
     if not worst <= DECODE_LPS_ATOL:
         raise SystemExit(f"the chain's model decodes {worst:.3e} away from "
                          "the CPU's enhanced LPS")
-    text = cli(["eval", "--json", "--clean", *clean, "--test", *enhanced])
-    rows = [json.loads(line) for line in text.splitlines()]
-    for row in rows:
-        print(f"pipe    eval {json.dumps(row)}")
-    if [r["name"] for r in rows] != enhanced + ["mean"] or not all(
-            math.isfinite(r[m]) for r in rows
-            for m in ("segsnr", "lsd", "stoi", "pesq")):
-        raise SystemExit("eval: rows missing or metrics not finite")
+    loud_rows = score(clean, enhanced, "lrate 0.1 chain")
+
+    # A model that does not overflow: two epochs at lrate 0.001.  Its
+    # float waves stay within a few int16 ranges, where float32 resolves
+    # far below 1 LSB, so the card's waves are held to the CPU's sample by
+    # sample; its SegSNR must beat the overflowing model's, which sits at
+    # the metric's floor of -20.
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = os.path.join(root, f"enhanced_quiet_{device}")
+        lps_kernel.launches = 0
+        cli(["decode", *noisy, "--wts", quiet["wts"], "--norm", quiet["norm"],
+             "--out-dir", outs[device], "--device", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches += lps_kernel.launches
+    names = [os.path.basename(path) for path in enhanced]
+    worst, peak = 0, 0
+    for name in names:
+        got = read_wav(os.path.join(outs["cuda"], name))[0]
+        ref = read_wav(os.path.join(outs["cpu"], name))[0]
+        if len(got) != len(ref):
+            raise SystemExit(f"{name}: card and CPU lengths differ")
+        worst = max(worst, wrapped_lsb(got, ref))
+        peak = max(peak, int(np.abs(got.astype(np.int32)).max()))
+    print(f"pipe    decode with the lrate {AGREE_LRATE} weights: max "
+          f"|cuda-cpu| = {worst} LSB, peak |sample| {peak}")
+    if worst > 1:
+        raise SystemExit(f"the lrate {AGREE_LRATE} model's waves differ from "
+                         f"the CPU's by {worst} LSB")
+    rows = score(clean, [os.path.join(outs["cuda"], n) for n in names],
+                 f"lrate {AGREE_LRATE}")
+    if not rows[-1]["segsnr"] > max(-20.0, loud_rows[-1]["segsnr"]):
+        raise SystemExit(f"the lrate {AGREE_LRATE} model's SegSNR "
+                         f"{rows[-1]['segsnr']} is not above the "
+                         f"overflowing model's {loud_rows[-1]['segsnr']}")
     return launches
 
 
-def pipeline_phase(root: str) -> dict:
+def pipeline_phase(root: str, quiet: dict) -> dict:
     """wav -> .lps -> pfile -> .norm -> bptrain chain -> decode -> eval,
     through the CLI on the card."""
     t0 = time.perf_counter()
@@ -833,11 +929,188 @@ def pipeline_phase(root: str) -> dict:
     lps_launches, ms = extract_lps(root, cx)
     p = pack(root, cx)
     ggd_launches = chain(root, p)
-    lps_launches += enhance_and_score(root, cx, p)
+    lps_launches += enhance_and_score(root, cx, p, quiet)
     seconds = time.perf_counter() - t0
     print(f"pipe    pipeline phase wall time: {seconds:.2f} s")
     return {"lps_launches": lps_launches, "ggd_launches": ggd_launches,
             "seconds": seconds, "ms_per_file": ms}
+
+
+def stream_files(fx: dict, out_dir: str, device: str) -> list[np.ndarray]:
+    """``decode --stream`` of the fixture utterances through the CLI ->
+    the enhanced waves, each with its printed latency line checked."""
+    text = cli(["decode", "--scp", fx["scp"], "--wts", fx["wts"],
+                "--norm", fx["norm"], "--out-dir", out_dir,
+                "--stream", str(STREAM_CHUNK), "--device", device])
+    waves = []
+    for line, path in zip(text.splitlines(), read_list(fx["scp"])):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out = os.path.join(out_dir, stem + "_enhanced.wav")
+        if line != (f"{stem}: streamed ({STREAM_CHUNK}-sample chunks, 80 ms "
+                    f"algorithmic latency) -> {out}"):
+            raise SystemExit(f"decode --stream printed {line!r}")
+        waves.append(read_wav(out)[0])
+    return waves
+
+
+def stream_cli(root: str, fx: dict) -> int:
+    """The streaming path as a user drives it, with the counts set to 0
+    just before and read just after.  -> LPS kernel launches."""
+    hops = sum(len(w) // SHIFT for w in fx["waves"])
+    lps_kernel.launches = 0
+    streaming.hops_replayed = 0
+    got = stream_files(fx, os.path.join(root, "stream", "cuda"), "cuda")
+    torch.cuda.synchronize()
+    replays, eager = streaming.hops_replayed, lps_kernel.launches
+    print(f"stream  decode --stream {STREAM_CHUNK} --device cuda: {hops} "
+          f"hops pushed, {replays} graph replays (one LPS kernel launch "
+          f"each), {eager} lps_cuda calls besides (one warm-up, one "
+          f"capture: one enhancer served the {len(got)} files)")
+    if replays != hops or eager != 2:
+        raise SystemExit(f"streamed {hops} hops in {replays} replays and "
+                         f"{eager} lps_cuda calls")
+    host = stream_files(fx, os.path.join(root, "stream", "cpu"), "cpu")
+    stems = [os.path.splitext(os.path.basename(p))[0]
+             for p in read_list(fx["scp"])]
+    worst_batch = worst_cpu = 0
+    for stem, wave, cpu_wave in zip(stems, got, host):
+        batch, _ = read_wav(os.path.join(root, "plain", "cuda",
+                                         stem + "_enhanced.wav"))
+        if not len(wave) == len(batch) == len(cpu_wave):
+            raise SystemExit(f"{stem}: streamed {len(wave)} samples, batch "
+                             f"{len(batch)}, CPU stream {len(cpu_wave)}")
+        worst_batch = max(worst_batch, wrapped_lsb(wave, batch))
+        worst_cpu = max(worst_cpu, wrapped_lsb(wave, cpu_wave))
+    print(f"stream  {len(got)} utterances: max |stream - card batch decode| "
+          f"= {worst_batch} LSB, max |stream cuda-cpu| = {worst_cpu} LSB")
+    if worst_batch > 1 or worst_cpu > 1:
+        raise SystemExit("the streamed waves differ by more than 1 LSB")
+    return replays + eager
+
+
+def stream_library(fx: dict) -> None:
+    """8 streams, quality options on: replayed against eager on the card
+    (bitwise), against the CPU (1 LSB), and the kernels of one hop."""
+    kw = {"n_streams": 8, "blend": "auto", "smooth_strength": "auto"}
+    hops = stream_hops(fx["waves"], 8, 8 * CHUNK_HOPS)
+    outs = {}
+    streamers = {"replayed": StreamingEnhancer(fx["wts"], fx["norm"], **kw),
+                 "eager": StreamingEnhancer(fx["wts"], fx["norm"],
+                                            graph=False, **kw),
+                 "cpu": StreamingEnhancer(fx["wts"], fx["norm"],
+                                          device="cpu", **kw)}
+    streaming.hops_replayed = 0
+    for name, s in streamers.items():
+        chunks = [s.push_many(hops[:, lo:lo + CHUNK_HOPS], int16_wire=True)[0]
+                  for lo in range(0, hops.shape[1], CHUNK_HOPS)]
+        outs[name] = np.concatenate(chunks + [
+            np.trunc(out).astype(np.int16)[:, None] for out in s.flush_hops()],
+            axis=1)
+    same = np.array_equal(outs["replayed"], outs["eager"]) and all(
+        torch.equal(x, y) for x, y in zip(streamers["replayed"].state,
+                                          streamers["eager"].state))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in streamers["replayed"].state)
+    worst = wrapped_lsb(outs["replayed"].ravel(), outs["cpu"].ravel())
+    print(f"stream  8 streams x {hops.shape[1]} hops, push_many(K="
+          f"{CHUNK_HOPS}, int16 wire), blend=auto smooth_strength=auto: "
+          f"replayed == eager bitwise (outputs and final state) = {same}; "
+          f"state finite = {finite}; max |cuda-cpu| = {worst} LSB; "
+          f"{streaming.hops_replayed} replays")
+    if not (same and finite and worst <= 1
+            and streaming.hops_replayed == hops.shape[1]):
+        raise SystemExit("the replayed step disagrees with the eager step "
+                         "or the CPU")
+    for name in ("eager", "replayed"):
+        hop_profile(streamers[name], f"one {name} hop at S=8, both options "
+                                     f"auto")
+
+
+# A hop's device time by what does it: substrings of the kernels' names.
+HOP_GROUPS = (("LPS kernel", ("lps_kernel",)),
+              ("FFN products", ("gemm", "gemv", "splitKreduce")),
+              ("sigmoid", ("sigmoid",)),
+              ("FFT", ("fft",)),
+              ("copies", ("Memcpy", "memcpy", "direct_copy")))
+
+
+def hop_profile(streamer: StreamingEnhancer, label: str) -> None:
+    """Print one step's device launches and busy time from
+    ``torch.profiler`` (mean of 10 steps), grouped by ``HOP_GROUPS``, and
+    the kernel that takes most of it; the step must hold exactly one LPS
+    kernel."""
+    with torch.inference_mode():
+        busy, launches, kernels = device_profile(streamer._run_step, 10)
+    groups = dict.fromkeys([g for g, _ in HOP_GROUPS] + ["elementwise"], 0.0)
+    for name, us, _ in kernels:
+        group = next((g for g, keys in HOP_GROUPS
+                      if any(k in name for k in keys)), "elementwise")
+        groups[group] += us
+    lps = sum(n for name, _, n in kernels if "lps_kernel" in name)
+    top, top_us, top_n = kernels[0]
+    print(f"stream  {label} (torch.profiler, 10 hops): {launches:.1f} device "
+          f"launches, {lps:.1f} of them the LPS kernel; busy {busy:.1f} us: "
+          + ", ".join(f"{g} {us:.1f}" for g, us in groups.items())
+          + f"; largest: {top_n:.0f} x {top[:72]} {top_us:.1f} us")
+    if lps != 1:
+        raise SystemExit(f"{label}: {lps} LPS kernels in a hop")
+
+
+def stream_times(fx: dict) -> None:
+    """Per hop at each stream count: the step alone on the card (eager and
+    replayed, CUDA events over back-to-back steps), ``push`` as a caller
+    sees it (host clock, the copies each way included), and ``push_many``
+    hops/s on both wires."""
+    hop_ms = SHIFT / SAMPLE_RATE * 1e3
+    for n in STREAM_COUNTS:
+        hops = stream_hops(fx["waves"], n, PUSH_CALLS)
+        eager = StreamingEnhancer(fx["wts"], fx["norm"], n_streams=n,
+                                  graph=False)
+        s = StreamingEnhancer(fx["wts"], fx["norm"], n_streams=n)
+        with torch.inference_mode():
+            for enh in (eager, s):     # a warm state: frames in every ring
+                enh.push_many(hops[:, :16], int16_wire=True)
+            eager_us = time_ms(eager._run_step, iters=50) * 1e3
+            replay_us = time_ms(s._run_step, iters=200) * 1e3
+        hop_profile(s, f"one replayed hop at S={n}")
+        wall = []
+        for j in range(PUSH_CALLS):
+            hop = hops[:, j].astype(np.float32)
+            t0 = time.perf_counter()
+            s.push(hop)
+            wall.append((time.perf_counter() - t0) * 1e6)
+        p50, p99 = np.percentile(wall, [50, 99])
+        rate = {}
+        for wire in ("float32", "int16"):
+            chunk = hops[:, :CHUNK_HOPS]
+            if wire == "float32":
+                chunk = chunk.astype(np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(40):
+                s.push_many(chunk, int16_wire=wire == "int16")
+            rate[wire] = 40 * CHUNK_HOPS / (time.perf_counter() - t0)
+        print(f"stream  S={n:3d}: step alone on the card eager "
+              f"{eager_us:.1f} us, replayed {replay_us:.1f} us per hop "
+              f"({1e6 / replay_us:.0f} hops/s = "
+              f"{n * hop_ms * 1e3 / replay_us:.0f} channels x real time); "
+              f"push() wall p50 {p50:.1f} us, p99 {p99:.1f} us over "
+              f"{PUSH_CALLS} calls ({n * hop_ms * 1e3 / p50:.0f} channels x "
+              f"real time at p50); push_many(K={CHUNK_HOPS}) "
+              f"{rate['float32']:.0f} hops/s float32 wire, "
+              f"{rate['int16']:.0f} hops/s int16 wire "
+              f"({n * hop_ms / 1e3 * rate['int16']:.0f} channels x real time)")
+
+
+def stream_phase(root: str, fx: dict) -> int:
+    """-> LPS kernel launches of the streamed decode."""
+    t0 = time.perf_counter()
+    launches = stream_cli(root, fx)
+    stream_library(fx)
+    stream_times(fx)
+    print(f"stream  streaming phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
 
 
 def main() -> int:
@@ -868,16 +1141,20 @@ def main() -> int:
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
         train = train_phase(dev, root)
-        pipe = pipeline_phase(os.path.join(root, "pipeline"))
+        pipe = pipeline_phase(os.path.join(root, "pipeline"),
+                              train["quiet"])
+        stream_launches = stream_phase(root, fx)
 
-    # Device time (CUDA-graph replay) at the main path's shapes: the
-    # batched decode's rows, the parity bunch.  Neither kernel's function
-    # is one PyTorch call, so there is no library time.
+    # Launches: over the decode, streaming (graph replays included) and
+    # pipeline paths; over the training and pipeline paths.  Device time
+    # (CUDA-graph replay) at the main path's shapes: the batched decode's
+    # rows, the parity bunch.  Neither kernel's function is one PyTorch
+    # call, so there is no library time.
     print(json.dumps({"kernels": [{
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
-        "launches": launches + pipe["lps_launches"],
+        "launches": launches + stream_launches + pipe["lps_launches"],
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",

@@ -254,7 +254,7 @@ def test_cpu_decode_never_launches_the_kernel(fx):
     assert lps_kernel.launches == before == 0
 
 
-@pytest.mark.parametrize("flag", [["--stream", "1000"], ["--mesh-data", "2"]])
+@pytest.mark.parametrize("flag", [["--mesh-data", "2"]])
 def test_cli_rejects_unported_options(flag):
     with pytest.raises(SystemExit):
         build_parser().parse_args(["decode", "a.wav", "--wts", "m.wts",

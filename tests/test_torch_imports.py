@@ -22,6 +22,7 @@ def test_port_imports_no_jax():
             "import tpu_se_torch.io, tpu_se_torch.bench.profile_decode\n"
             "import tpu_se_torch.cli.bptrain, tpu_se_torch.infer.evaluate\n"
             "import tpu_se_torch.infer.stoi, tpu_se_torch.infer.pesq\n"
+            "import tpu_se_torch.infer.streaming\n"
             "import tpu_se_torch.io.atomic, tpu_se_torch.io.wav\n"
             "import tpu_se_torch.io.htk, tpu_se_torch.io.pfile\n"
             "import tpu_se_torch.io.norm, tpu_se_torch.io.wts\n"
@@ -35,6 +36,15 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_infer_exports_every_name_of_the_jax_package():
+    import tpu_se.infer
+    import tpu_se_torch.infer
+
+    assert set(tpu_se.infer.__all__) <= set(tpu_se_torch.infer.__all__)
+    for name in tpu_se_torch.infer.__all__:
+        assert callable(getattr(tpu_se_torch.infer, name)), name
 
 
 def test_resolve_device_cpu_pins_fp32():

@@ -8,6 +8,8 @@ and the two ``.scp`` lists.  ``write_train_fixtures`` makes a training
 set the same way: a noisy/clean LPS pfile pair of 24 sentences and the
 noisy ``.norm``; ``write_corpus_fixtures`` writes those 24 sentences as
 noisy/clean wavs instead, the input of the feature-preparation CLI.
+``stream_hops`` cuts ``write_fixtures``' waves into the aligned hops a
+multi-stream ``StreamingEnhancer`` takes.
 """
 
 from __future__ import annotations
@@ -209,3 +211,18 @@ def pad_batch(waves: list, device) -> tuple[torch.Tensor, torch.Tensor, int]:
         batch[i, : (t + 1) * SHIFT] = w[: (t + 1) * SHIFT]
     return (torch.from_numpy(batch).to(device),
             torch.tensor(ts, device=device), sum(ts))
+
+
+def stream_hops(waves: list, n_streams: int, n_hops: int,
+                shift: int = SHIFT) -> np.ndarray:
+    """``[n_streams, n_hops, shift]`` int16 hops for ``StreamingEnhancer``:
+    stream s plays ``waves[s % len(waves)]`` from hop ``s // len(waves)``
+    on and starts again at its end, so no two streams carry the same
+    samples at the same time."""
+    out = np.empty((n_streams, n_hops, shift), np.int16)
+    for s in range(n_streams):
+        wave = np.asarray(waves[s % len(waves)], np.int16)
+        period = len(wave) // shift
+        rows = (s // len(waves) + np.arange(n_hops)) % period
+        out[s] = wave[: period * shift].reshape(period, shift)[rows]
+    return out

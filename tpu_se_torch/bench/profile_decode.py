@@ -31,6 +31,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpu_se_torch.bench.fixtures import (
@@ -42,10 +43,10 @@ from tpu_se_torch.ops import lps_kernel
 
 
 def device_profile(fn, iters: int) -> tuple[float, float, list]:
-    """(busy us per call, device launches per call, [(name, us per call)])
-    of ``fn`` from ``torch.profiler``: the self device time of every
-    non-``aten::`` entry (kernels and copies; an ``aten::`` op would count
-    its kernels a second time)."""
+    """(busy us per call, device launches per call, [(name, us per call,
+    launches per call)]) of ``fn`` from ``torch.profiler``: the self device
+    time of every entry that ran on the card (kernels and copies; the
+    host-side ``aten::`` ops carry their kernels' time a second time)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -53,10 +54,10 @@ def device_profile(fn, iters: int) -> tuple[float, float, list]:
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / iters, e.count / iters)
             for e in prof.key_averages()
-            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+            if e.self_device_time_total > 0
+            and e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
-    return (sum(r[1] for r in rows), sum(r[2] for r in rows),
-            [(name, us) for name, us, _ in rows])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
 def profile_batches(enh: Enhancer, waves: list, repeats: int,
@@ -83,7 +84,7 @@ def profile_batches(enh: Enhancer, waves: list, repeats: int,
               f"{busy:.1f} us/batch over {launches:.0f} device launches; "
               f"idle share vs median event time {median:.4f} ms = "
               f"{1 - busy / (median * 1e3):.3f}")
-        for name, us in kernels[:12]:
+        for name, us, _ in kernels[:12]:
             print(f"  {name[:72]:72s} {us:8.1f} us/batch "
                   f"{us / busy:6.3f}")
 

@@ -97,6 +97,15 @@ def dft_basis(frame_length: int, device) -> torch.Tensor:
         _windowed_dft_basis(frame_length, frame_length)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _resident_basis(frame_length: int, device: torch.device) -> torch.Tensor:
+    """One ``dft_basis`` per (frame length, device), kept for the life of
+    the process: a caller that passes no basis (``wav_to_lps``, once per
+    file of ``lps-extract``) then uploads the 1 MB matrix once, not per
+    call.  Read-only: every such caller shares it."""
+    return dft_basis(frame_length, device)
+
+
 def num_frames(n_samples: int, frame_length: int = FRAME_LENGTH,
                frame_shift: int = FRAME_SHIFT) -> int:
     """Frames emitted by the reference front end for an n-sample waveform
@@ -123,8 +132,8 @@ def lps_from_frames(frames: torch.Tensor, method: str = "matmul",
 
     ``method='matmul'`` (default): the windowed-DFT product with the fused
     epilogue -- ``lps_cuda`` for a CUDA tensor, ``lps_plain`` for a CPU one.
-    ``basis`` is that product's [L, 2K] matrix; callers that decode many
-    utterances pass it to keep it on the device (default: built here).
+    ``basis`` is that product's [L, 2K] matrix (default: one kept per frame
+    length and device).
     ``method='fft'``: ``torch.fft.rfft`` of the windowed frames, the same
     math on another schedule, kept as a cross-check.
     """
@@ -134,7 +143,7 @@ def lps_from_frames(frames: torch.Tensor, method: str = "matmul",
     frame_length = frames.shape[1]
     if method == "matmul":
         if basis is None:
-            basis = dft_basis(frame_length, frames.device)
+            basis = _resident_basis(frame_length, frames.device)
         if frames.device.type == "cuda":
             return lps_cuda(frames.contiguous(), basis.contiguous())
         if frames.device.type == "cpu":

@@ -369,6 +369,12 @@ class Enhancer:
                 else np.zeros(0, np.int16) for i, t in enumerate(ts)]
 
 
+def enhance_utterance(wts_path, norm_path, noisy_wave: np.ndarray,
+                      device="cuda") -> np.ndarray:
+    """One noisy int16 wave -> its enhanced int16 wave, on ``device``."""
+    return Enhancer(wts_path, norm_path, device=device).enhance(noisy_wave)[0]
+
+
 def decode_files(wts_path, norm_path, wav_paths: list, out_dir,
                  clean_paths: list | None = None, log=print,
                  noisy_info: bool = False, batch_size: int = 0,
