@@ -87,7 +87,34 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    hop's profile, wall p50/p99 over 300 ``push`` calls, ``push_many``
    hops/s with the float and the int16 wire, and the channels of
    real-time audio that is (a hop is 16 ms at 16 kHz);
-10. prints the kernel table as JSON (each kernel's launches summed over
+10. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
+   sums, everything else float32), at the same full-width model and
+   fixtures; nothing falls back to float32 or to the CPU:
+   ``FFN`` on the card against the CPU's formulation (widened operands)
+   for M in {1, 8, 128, 992, 4096}, with and without
+   ``act_dtype=bfloat16``: every layer on the CPU's own input within 1e-5
+   of the output's scale (only the float32 sums' order differs), the whole
+   network within 0.75 of the float32 network's distance (a float32 sum
+   order can round a hidden activation to the neighbouring bfloat16 value,
+   after which the later layers' rounding noise is drawn anew), and one
+   linear layer alone, forward and the two backward products; the device
+   kernels of a bfloat16 batch decode from ``torch.profiler`` (no float32
+   SGEMM among the network's products); ``Enhancer(compute_dtype=
+   torch.bfloat16)`` at batch 4 and 16: enhanced LPS against the CPU's
+   bfloat16 decode, one LPS kernel launch per batch, and ms per batch
+   beside the float32 decode's over 5 repeats; ``StreamingEnhancer(
+   compute_dtype=torch.bfloat16)`` at 1, 8 and 128 streams: 64 hops
+   replayed against eager on the card (bitwise), launches per hop, the
+   network's share and the replayed step's time beside float32's;
+   ``train --compute-dtype bfloat16 --epochs 2`` on the card twice
+   (byte-identical), at ``--lrate 0.001`` on the card and on the CPU
+   (weight changes per layer and CV metrics within the bfloat16
+   tolerances), one ``bptrain compute_dtype=bfloat16`` epoch byte-identical
+   to ``train``'s first, the GGD kernel launched once per ML bunch,
+   samples/s at M = 128 and ms per bunch at M = 4096 beside float32's;
+   ``wav_to_mfcc`` on the card against the CPU; one training bunch under
+   ``profile_trace``, whose Chrome trace must hold CUDA kernels;
+11. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -120,19 +147,25 @@ from tpu_se_torch.bench.profile_decode import device_profile  # noqa: E402
 from tpu_se_torch.cli.main import main as cli_main  # noqa: E402
 from tpu_se_torch.data import PfilePairDataset, plan_chunks  # noqa: E402
 from tpu_se_torch.dsp import analysis  # noqa: E402
-from tpu_se_torch.dsp.analysis import dft_basis  # noqa: E402
+from tpu_se_torch.dsp.analysis import dft_basis, wav_to_mfcc  # noqa: E402
 from tpu_se_torch.infer import Enhancer, StreamingEnhancer  # noqa: E402
 from tpu_se_torch.infer import streaming  # noqa: E402
 from tpu_se_torch.io import (  # noqa: E402
     read_norm, read_pfile_meta, read_wav, read_wts,
+)
+from tpu_se_torch.models import params_from_numpy  # noqa: E402
+from tpu_se_torch.models.ffn import (  # noqa: E402
+    reduced_linear, reduced_product,
 )
 from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
 from tpu_se_torch.train import (  # noqa: E402
-    TrainConfig, load_checkpoint, load_device_frames, train_one_epoch,
+    TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
+    train_chunk, train_one_epoch,
 )
+from tpu_se_torch.utils import profile_trace  # noqa: E402
 
 # Kernel against plain, log domain.  Both sum in float64 and round only
 # re/im to float32, so they agree to a few float32 ulps of the log power
@@ -159,6 +192,35 @@ TRAIN_CV_RTOL = 1e-4
 # ~27 by a few ulps (1.9e-6 each) per layer.
 DECODE_LPS_ATOL = 1e-3
 AGREE_LRATE = "0.001"
+# bfloat16 (compute_dtype=bfloat16), card against CPU.  Both round the same
+# operands to bfloat16 and sum exact products in float32; the two sum
+# orders differ by float32 ulps, which can round a hidden activation (or a
+# weight of the next bunch) to the neighbouring bfloat16 value.
+# - One product: sum order only, relative to the result's scale.
+BF16_PRODUCT_RTOL = 1e-5
+# - A result that is itself rounded to bfloat16 (dW, dh): one flipped
+#   rounding, one bfloat16 ulp.
+BF16_ULP = 2.0 ** -7
+# - The whole network, the enhanced LPS: one flipped hidden activation
+#   (a step of 2^-8) moves the next layer's 2048 inputs by ~1e-4, which
+#   flips ~1 % of THEIR roundings, and so on: after a first flip the rest
+#   of the network's rounding noise is drawn anew.  Two bfloat16
+#   evaluations are therefore as far apart as part of bfloat16's own
+#   rounding noise, which the run measures as the float32 network's
+#   distance; they share the first layers' noise, so they must stay within
+#   this share of it (a float32 fallback would sit at 1.0, a rounded z
+#   beyond).  The tight check is layer by layer on the same input.
+BF16_NET_SHARE = 0.75
+# - Two epochs at AGREE_LRATE: weight changes per layer and CV metrics.
+#   Flipped weight roundings (2^-9 relative each, a few per cent of the
+#   weights per bunch once the runs are float32 ulps apart) put the two
+#   runs' gradients ~2^-9/sqrt(n) apart; the first layer's gradient sums
+#   to far less than its terms, which the CPU tests saw cost 2 %.
+BF16_TRAIN_DW_RTOL = 5e-2
+BF16_TRAIN_CV_RTOL = 1e-3
+MFCC_ATOL = 1e-3          # the CPU tests' bound against JAX; here ~1e-5
+BF16_ROWS = (1, 8, 128, 992, 4096)
+BIG_BUNCH = 4096
 BUNCH = 128
 EPOCHS = 2
 # name -> (with --clean-scp, extra decode flags)
@@ -567,15 +629,17 @@ def train_phase(dev, root: str) -> dict:
     return {"launches": launches, "dw_rel": worst_dw, "cv_rel": worst_cv,
             "samples_per_s": train_rate(dev, tfx, init_wts),
             "quiet": {"wts": os.path.join(root, "cuda_lr", "mlp.2.wts"),
-                      "norm": tfx["norm"]}}
+                      "norm": tfx["norm"]},
+            "tfx": tfx, "init_wts": init_wts}
 
 
-def train_rate(dev, tfx: dict, init_wts: str) -> float:
+def train_rate(dev, tfx: dict, init_wts: str,
+               compute_dtype: str = "float32") -> float:
     """Informational: training samples/s of epoch 1 on the card (resident
     frames, no CV), host clock around the epoch ending in a synchronise."""
     cfg = TrainConfig(train_sent_range=tuple(
         int(x) for x in tfx["train_sents"].split("-")),
-        traincache=tfx["traincache"])
+        traincache=tfx["traincache"], compute_dtype=compute_dtype)
     ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
                           cfg.train_sent_range, cfg.traincache)
     frames = load_device_frames(ds, dev)
@@ -588,7 +652,8 @@ def train_rate(dev, tfx: dict, init_wts: str) -> float:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     samples = ml_bunches(tfx) * BUNCH
-    print(f"train   epoch 1 on the card, no CV: {samples} samples in "
+    print(f"train   epoch 1 on the card, no CV, {compute_dtype}: {samples} "
+          f"samples in "
           f"{dt:.4f} s = {samples / dt:.0f} samples/s "
           f"({samples // BUNCH} bunches, {dt / (samples // BUNCH) * 1e3:.3f} "
           f"ms per bunch)")
@@ -620,7 +685,8 @@ def lps_path(wav: str) -> str:
     return wav.rsplit(".", 1)[0] + ".lps"
 
 
-def finetune_args(p: dict, init_wts: str, out_dir: str, epoch: int) -> list:
+def finetune_args(p: dict, init_wts: str, out_dir: str, epoch: int,
+                  *extra) -> list:
     """The key=value strings of ``finetune.pl``'s iteration ``epoch``
     (finetune.pl:50-76, as tests/test_bptrain_cli.py lists them), cut to
     the corpus: 20 training and 4 CV sentences, traincache 1024."""
@@ -637,7 +703,8 @@ def finetune_args(p: dict, init_wts: str, out_dir: str, epoch: int) -> list:
         f"log_file={out_dir}/mlp.{epoch}.log",
         f"train_sent_range={p['train_sents']}",
         f"cv_sent_range={p['cv_sents']}",
-        "dropoutflag=0", "visible_omit=0.1", "hid_omit=0.1", "device=cuda"]
+        "dropoutflag=0", "visible_omit=0.1", "hid_omit=0.1", "device=cuda",
+        *extra]
 
 
 def extract_lps(root: str, cx: dict) -> tuple[int, dict]:
@@ -1028,17 +1095,17 @@ def stream_library(fx: dict) -> None:
 
 # A hop's device time by what does it: substrings of the kernels' names.
 HOP_GROUPS = (("LPS kernel", ("lps_kernel",)),
-              ("FFN products", ("gemm", "gemv", "splitKreduce")),
+              ("FFN products", ("gemm", "gemv", "splitKreduce", "nvjet")),
               ("sigmoid", ("sigmoid",)),
               ("FFT", ("fft",)),
               ("copies", ("Memcpy", "memcpy", "direct_copy")))
 
 
-def hop_profile(streamer: StreamingEnhancer, label: str) -> None:
+def hop_profile(streamer: StreamingEnhancer, label: str) -> dict:
     """Print one step's device launches and busy time from
     ``torch.profiler`` (mean of 10 steps), grouped by ``HOP_GROUPS``, and
     the kernel that takes most of it; the step must hold exactly one LPS
-    kernel."""
+    kernel.  -> the launches, the busy us and the network's products' us."""
     with torch.inference_mode():
         busy, launches, kernels = device_profile(streamer._run_step, 10)
     groups = dict.fromkeys([g for g, _ in HOP_GROUPS] + ["elementwise"], 0.0)
@@ -1054,14 +1121,18 @@ def hop_profile(streamer: StreamingEnhancer, label: str) -> None:
           + f"; largest: {top_n:.0f} x {top[:72]} {top_us:.1f} us")
     if lps != 1:
         raise SystemExit(f"{label}: {lps} LPS kernels in a hop")
+    return {"launches": launches, "busy_us": busy,
+            "ffn_us": groups["FFN products"]}
 
 
-def stream_times(fx: dict) -> None:
+def stream_times(fx: dict) -> dict:
     """Per hop at each stream count: the step alone on the card (eager and
     replayed, CUDA events over back-to-back steps), ``push`` as a caller
     sees it (host clock, the copies each way included), and ``push_many``
-    hops/s on both wires."""
+    hops/s on both wires.  -> per stream count, the replayed hop's profile
+    and time (float32, for the bfloat16 phase to print beside its own)."""
     hop_ms = SHIFT / SAMPLE_RATE * 1e3
+    seen = {}
     for n in STREAM_COUNTS:
         hops = stream_hops(fx["waves"], n, PUSH_CALLS)
         eager = StreamingEnhancer(fx["wts"], fx["norm"], n_streams=n,
@@ -1072,7 +1143,8 @@ def stream_times(fx: dict) -> None:
                 enh.push_many(hops[:, :16], int16_wire=True)
             eager_us = time_ms(eager._run_step, iters=50) * 1e3
             replay_us = time_ms(s._run_step, iters=200) * 1e3
-        hop_profile(s, f"one replayed hop at S={n}")
+        seen[n] = {**hop_profile(s, f"one replayed hop at S={n}"),
+                   "replay_us": replay_us}
         wall = []
         for j in range(PUSH_CALLS):
             hop = hops[:, j].astype(np.float32)
@@ -1100,17 +1172,439 @@ def stream_times(fx: dict) -> None:
               f"{rate['float32']:.0f} hops/s float32 wire, "
               f"{rate['int16']:.0f} hops/s int16 wire "
               f"({n * hop_ms / 1e3 * rate['int16']:.0f} channels x real time)")
+    return seen
 
 
-def stream_phase(root: str, fx: dict) -> int:
-    """-> LPS kernel launches of the streamed decode."""
+def stream_phase(root: str, fx: dict) -> tuple[int, dict]:
+    """-> LPS kernel launches of the streamed decode, and the float32
+    hops' times per stream count."""
     t0 = time.perf_counter()
     launches = stream_cli(root, fx)
     stream_library(fx)
-    stream_times(fx)
+    seen = stream_times(fx)
     print(f"stream  streaming phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
+    return launches, seen
+
+
+def bf16_forward(dev, fx: dict) -> None:
+    """The bfloat16 network on the card against the CPU's formulation, and
+    one linear layer alone, forward and backward."""
+    layers = read_wts(fx["wts"])
+    host = params_from_numpy(layers, "cpu")
+    card = params_from_numpy(layers, dev)
+    cast = card.cast_weights(torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    for m in BF16_ROWS:
+        x = torch.from_numpy(rng.standard_normal(
+            (m, layers[0]["w"].shape[0])).astype(np.float32))
+        with torch.no_grad():
+            # Layer by layer, the card's layer on the CPU's own input: only
+            # the order of the float32 sums differs.
+            h, layer_errs = x, []
+            for i, (w, b) in enumerate(zip(host.weights, host.biases)):
+                z = reduced_linear(h, w, b, torch.bfloat16)
+                z_card = reduced_linear(h.to(dev), card.weights[i],
+                                        card.biases[i], torch.bfloat16,
+                                        cast[i])
+                layer_errs.append((z_card.cpu() - z).abs().max().item()
+                                  / z.abs().max().item())
+                h = torch.sigmoid(z)
+            want = host(x, compute_dtype=torch.bfloat16)
+            if not torch.equal(want, z):
+                raise SystemExit("FFN.forward is not the chain of its layers")
+            if m <= BUNCH:
+                # Hidden activations are rounded to bfloat16 by the next
+                # product anyway, so act_dtype=bfloat16 changes no bit.
+                again = host(x, compute_dtype=torch.bfloat16,
+                             act_dtype=torch.bfloat16)
+                if not torch.equal(again, want):
+                    raise SystemExit("act_dtype=bfloat16 changes the CPU's "
+                                     f"bfloat16 forward at M={m}")
+            errs = []
+            for act_dtype in (None, torch.bfloat16):
+                got = card(x.to(dev), compute_dtype=torch.bfloat16,
+                           act_dtype=act_dtype, cast_weights=cast)
+                if got.dtype != torch.float32:
+                    raise SystemExit(f"bfloat16 forward returns {got.dtype}")
+                errs.append((got.cpu() - want).abs().max().item())
+            gap = (card(x.to(dev)).cpu() - want).abs().max().item()
+        tol = BF16_NET_SHARE * gap
+        print(f"bf16    FFN M={m:4d}: each layer on the CPU's input, max "
+              f"|cuda-cpu| / max|z| = "
+              f"{', '.join(f'{e:.2e}' for e in layer_errs)} (tolerance "
+              f"{BF16_PRODUCT_RTOL}); whole network max |cuda-cpu| = "
+              f"{errs[0]:.3e} (act_dtype=bfloat16: {errs[1]:.3e}), tolerance "
+              f"{tol:.3e} = {BF16_NET_SHARE} x the float32 network's "
+              f"distance {gap:.3e} (max|out| "
+              f"{want.abs().max().item():.3f})")
+        if not (max(layer_errs) <= BF16_PRODUCT_RTOL and max(errs) <= tol):
+            raise SystemExit(f"bfloat16 forward on the card differs from "
+                             f"the CPU's at M={m}")
+
+    h, w, g = (rng.standard_normal(shape).astype(np.float32) * scale
+               for shape, scale in (((BUNCH, 2048), 1.0),
+                                    ((2048, 2048), 0.05),
+                                    ((BUNCH, 2048), 1.0)))
+    b = rng.standard_normal(2048).astype(np.float32)
+    results = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        ht, wt, bt = (torch.from_numpy(a).to(device).requires_grad_()
+                      for a in (h, w, b))
+        z = reduced_linear(ht, wt, bt, torch.bfloat16)
+        grads = torch.autograd.grad(z, (ht, wt, bt),
+                                    torch.from_numpy(g).to(device))
+        results[name] = [t.detach().cpu() for t in (z, *grads)]
+    line = []
+    for name, got, want in zip(("z", "dh", "dW", "db"), *results.values()):
+        tol = ((BF16_ULP if name in ("dh", "dW") else BF16_PRODUCT_RTOL)
+               * want.abs().max().item())
+        err = (got - want).abs().max().item()
+        line.append(f"{name} {err:.3e} (tolerance {tol:.3e})")
+        if got.dtype != torch.float32 or not err <= tol:
+            raise SystemExit(f"bfloat16 linear layer: {name} on the card is "
+                             f"{got.dtype}, {err:.3e} from the CPU's")
+    # Informational, for a later PR: does the tensor cores' bfloat16-output
+    # product round its float32 sums once, as the explicit rounding does?
+    a16 = torch.from_numpy(h).to(dev).bfloat16().t().contiguous()
+    g16 = torch.from_numpy(g).to(dev).bfloat16()
+    direct = torch.mm(a16, g16)
+    explicit = reduced_product(a16, g16).to(torch.bfloat16)
+    print(f"bf16    one layer [{BUNCH}, 2048] x [2048, 2048], max |cuda-cpu|: "
+          f"{', '.join(line)}; a bfloat16-output product equals the float32 "
+          f"one rounded: {torch.equal(direct, explicit)}")
+
+
+# Substrings of the names of the device kernels that belong to a matrix
+# product (cuBLAS's split-K reduction included).
+PRODUCT_KEYS = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitK")
+
+
+def is_fp32_product(name: str) -> bool:
+    """A cuBLAS product outside the tensor cores: an SGEMM, or one of its
+    matrix-vector kernels instantiated for float operands."""
+    if "sgemm" in name:
+        return True
+    return (("gemv" in name or "gemmSN" in name)
+            and "bf16" not in name and "bfloat16" not in name)
+
+
+def decode_times(enh32: Enhancer, enh16: Enhancer, waves: list, label: str,
+                 repeats: int = 5) -> None:
+    """ms per batch of the device-only int16 decode, float32 beside
+    bfloat16 in turns, by ``decode_fps``'s method; then each one's device
+    busy time and the network's products' share of it."""
+    x, n_valid, frames = pad_batch(waves, enh32.device)
+    runs = {"float32": [], "bfloat16": []}
+    for _ in range(repeats):
+        for name, enh in (("float32", enh32), ("bfloat16", enh16)):
+            runs[name].append(time_ms(
+                lambda: enh.decode_waves_tensor(x, n_valid), iters=20))
+    for name, enh in (("float32", enh32), ("bfloat16", enh16)):
+        ms = sorted(runs[name])
+        busy, launches, kernels = device_profile(
+            lambda: enh.decode_waves_tensor(x, n_valid), 5)
+        ffn = sum(us for k, us, _ in kernels
+                  if any(key in k for key in PRODUCT_KEYS))
+        print(f"bf16    decode {label} ({frames} frames, {x.shape[0]} "
+              f"utterances) {name}: {ms[0]:.4f}-{ms[-1]:.4f} ms per batch "
+              f"over {repeats} repeats, median {ms[repeats // 2]:.4f} ms = "
+              f"{frames / ms[repeats // 2] * 1e3:.0f} frames/s; device busy "
+              f"{busy:.1f} us over {launches:.0f} launches (idle "
+              f"{1 - busy / (ms[repeats // 2] * 1e3):.1%}), products "
+              f"{ffn:.1f} us = {ffn / busy:.1%} of busy")
+
+
+def bf16_decode(dev, fx: dict) -> int:
+    """``Enhancer(compute_dtype=torch.bfloat16)`` on the card: its kernels,
+    its enhanced LPS against the CPU's, its time.  -> LPS kernel launches
+    of the two batch decodes."""
+    card = Enhancer(fx["wts"], fx["norm"], device=dev,
+                    compute_dtype=torch.bfloat16)
+    host = Enhancer(fx["wts"], fx["norm"], device="cpu",
+                    compute_dtype=torch.bfloat16)
+    card32 = Enhancer(fx["wts"], fx["norm"], device=dev)
+
+    x, n_valid, _ = pad_batch(fx["waves"], dev)
+    card.decode_waves_tensor(x, n_valid)                 # warm
+    _, _, kernels = device_profile(
+        lambda: card.decode_waves_tensor(x, n_valid), 3)
+    products = [(k, us, n) for k, us, n in kernels
+                if any(key in k for key in PRODUCT_KEYS)]
+    for k, us, n in kernels[:14]:
+        print(f"bf16    decode kernel {n:4.1f} x {k[:80]:80s} {us:8.1f} us")
+    fp32 = [k for k, _, _ in products if is_fp32_product(k)]
+    n_products = sum(n for _, _, n in products)
+    n_layers = len(card.model.weights)
+    print(f"bf16    decode: {n_products:.0f} product kernels per batch for "
+          f"{n_layers} layers, {len(fp32)} of them float32 SGEMM/GEMV")
+    if fp32 or n_products < n_layers:
+        raise SystemExit(f"the bfloat16 decode's products: {products}")
+
+    want = host.enhance_batch(fx["waves"])
+    total = 0
+    for label, waves in (("batch 4", fx["waves"]),
+                         ("batch 16", fx["waves"] * 4)):
+        lps_kernel.launches = 0
+        got = card.enhance_batch(waves)
+        torch.cuda.synchronize()
+        launches = lps_kernel.launches
+        total += launches
+        plain = card32.enhance_batch(waves)
+        worst = gap = scale = 0.0
+        lsb_cpu = lsb_fp32 = 0
+        for i, (g, p) in enumerate(zip(got, plain)):
+            w = want[i % len(want)]
+            if g[0].shape != w[0].shape or not np.isfinite(g[2]).all():
+                raise SystemExit(f"bfloat16 decode {label}: utterance {i} "
+                                 "has another length or is not finite")
+            worst = max(worst, float(np.abs(g[2] - w[2]).max()))
+            gap = max(gap, float(np.abs(g[2] - p[2]).max()))
+            scale = max(scale, float(np.abs(w[2]).max()))
+            lsb_cpu = max(lsb_cpu, wrapped_lsb(g[0], w[0]))
+            lsb_fp32 = max(lsb_fp32, wrapped_lsb(g[0], p[0]))
+        tol = BF16_NET_SHARE * gap
+        print(f"bf16    decode {label}: {launches} LPS kernel launch; "
+              f"enhanced LPS max |cuda-cpu| = {worst:.3e}, tolerance "
+              f"{tol:.3e} = {BF16_NET_SHARE} x the card's float32 decode's "
+              f"distance {gap:.3e} (max|LPS| {scale:.2f}); waves {lsb_cpu} "
+              f"LSB from the CPU's, {lsb_fp32} LSB from the float32 "
+              f"decode's (not gated)")
+        if launches != 1 or not worst <= tol:
+            raise SystemExit(f"bfloat16 decode {label}: {launches} LPS "
+                             f"launches, {worst:.3e} from the CPU's")
+        decode_times(card32, card, waves, label)
+    return total
+
+
+def bf16_stream(fx: dict, fp32_hops: dict) -> int:
+    """``StreamingEnhancer(compute_dtype=torch.bfloat16)`` at each stream
+    count: 64 hops replayed against eager (bitwise), then the replayed
+    hop's launches, products and time beside float32's.  -> graph replays
+    of the 64-hop runs (one LPS kernel launch each)."""
+    total = 0
+    for n in STREAM_COUNTS:
+        hops = stream_hops(fx["waves"], n, 64)
+        kw = {"n_streams": n, "compute_dtype": torch.bfloat16}
+        replayed = StreamingEnhancer(fx["wts"], fx["norm"], **kw)
+        eager = StreamingEnhancer(fx["wts"], fx["norm"], graph=False, **kw)
+        outs = {}
+        streaming.hops_replayed = 0
+        for name, s in (("replayed", replayed), ("eager", eager)):
+            outs[name] = np.concatenate(
+                [s.push_many(hops[:, lo:lo + CHUNK_HOPS], int16_wire=True)[0]
+                 for lo in range(0, hops.shape[1], CHUNK_HOPS)], axis=1)
+        torch.cuda.synchronize()
+        replays = streaming.hops_replayed
+        total += replays
+        same = np.array_equal(outs["replayed"], outs["eager"]) and all(
+            torch.equal(a, b) for a, b in zip(replayed.state, eager.state))
+        finite = all(bool(torch.isfinite(t).all()) for t in replayed.state)
+        if not (same and finite and replays == hops.shape[1]):
+            raise SystemExit(f"bfloat16 stream S={n}: replayed == eager "
+                             f"{same}, finite {finite}, {replays} replays")
+        with torch.inference_mode():
+            replay_us = time_ms(replayed._run_step, iters=200) * 1e3
+        prof = hop_profile(replayed, f"one replayed bfloat16 hop at S={n}")
+        ref = fp32_hops[n]
+        weights_mb = sum(w.numel() * w.element_size() for w in
+                         replayed._step_args.cast_weights) / 1e6
+        print(f"bf16    stream S={n:3d}: 64 hops replayed == eager bitwise "
+              f"(outputs and state); replayed hop {replay_us:.1f} us "
+              f"(float32 {ref['replay_us']:.1f}), {prof['launches']:.0f} "
+              f"device launches ({ref['launches']:.0f}), products "
+              f"{prof['ffn_us']:.1f} us ({ref['ffn_us']:.1f}) over "
+              f"{weights_mb:.1f} MB of weights = "
+              f"{weights_mb / prof["ffn_us"]:.2f} TB/s at least")
+    return total
+
+
+def big_bunch_ms(dev, tfx: dict, init_wts: str) -> None:
+    """Informational: ms per bunch at M = BIG_BUNCH, float32 beside
+    bfloat16 in turns, host clock around 4 bunches ending in a synchronise
+    (``train_rate``'s method).  The fixtures hold fewer windows than one
+    such bunch, so the windows are drawn with replacement from the
+    resident frames."""
+    ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
+                          tuple(int(x) for x in tfx["train_sents"].split("-")),
+                          tfx["traincache"])
+    noisy, clean = load_device_frames(ds, dev)
+    rng = np.random.default_rng(SEED)
+    starts = torch.from_numpy(rng.integers(
+        0, noisy.shape[0] - 7, size=(5, BIG_BUNCH))).to(dev)
+    ms = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        hyper = TrainHyper(bunchsize=BIG_BUNCH, compute_dtype=name)
+        state = load_checkpoint(init_wts, dev)
+        train_chunk(state, noisy, clean, starts[:1], float(AGREE_LRATE),
+                    hyper)                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_chunk(state, noisy, clean, starts[1:], float(AGREE_LRATE),
+                    hyper)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / 4)
+        if not all(bool(torch.isfinite(w).all())
+                   for w in state.model.weights):
+            raise SystemExit(f"M={BIG_BUNCH} {name} bunches left weights "
+                             "that are not finite")
+    print(f"bf16    train M={BIG_BUNCH}, 4 bunches, ms per bunch: " + "; ".join(
+        f"{name} {', '.join(f'{t:.3f}' for t in ts)} "
+        f"({BIG_BUNCH / min(ts) * 1e3:.0f} samples/s at best)"
+        for name, ts in ms.items()))
+    # Where a bunch's device time goes, at the parity bunch and this one.
+    for m in (BUNCH, BIG_BUNCH):
+        for name in ("float32", "bfloat16"):
+            hyper = TrainHyper(bunchsize=m, compute_dtype=name)
+            state = load_checkpoint(init_wts, dev)
+            rows = starts[:1, :m]
+            busy, launches, kernels = device_profile(
+                lambda: train_chunk(state, noisy, clean, rows,
+                                    float(AGREE_LRATE), hyper), 3)
+            products = sum(us for k, us, _ in kernels
+                           if any(key in k for key in PRODUCT_KEYS))
+            casts = sum(us for k, us, _ in kernels if "bfloat16_copy" in k)
+            top, top_us, top_n = kernels[0]
+            print(f"bf16    train bunch M={m} {name} (torch.profiler, 3 "
+                  f"bunches): {launches:.0f} device launches, busy "
+                  f"{busy:.1f} us: products {products:.1f}, casts to "
+                  f"bfloat16 {casts:.1f}, the rest "
+                  f"{busy - products - casts:.1f}; largest: {top_n:.0f} x "
+                  f"{top[:72]} {top_us:.1f} us")
+
+
+def bf16_train(dev, root: str, tfx: dict, init_wts: str) -> int:
+    """``train --compute-dtype bfloat16`` and ``bptrain
+    compute_dtype=bfloat16`` on the card.  -> GGD kernel launches."""
+    flag = ("--compute-dtype", "bfloat16")
+    want = ml_bunches(tfx)
+    ggd_kernel.launches = 0
+    run_train(tfx, init_wts, os.path.join(root, "cuda"), "cuda", *flag)
+    torch.cuda.synchronize()
+    launches = ggd_kernel.launches
+    run_train(tfx, init_wts, os.path.join(root, "cuda2"), "cuda", *flag)
+    names = [f"mlp.{e}.wts" for e in range(1, EPOCHS + 1)]
+
+    def same(a: str, b: str, name: str) -> bool:
+        with open(os.path.join(root, a, name), "rb") as f1, \
+                open(os.path.join(root, b, name), "rb") as f2:
+            return f1.read() == f2.read()
+
+    rerun = all(same("cuda", "cuda2", name) for name in names)
+    with open(os.path.join(root, "cuda", "mlp.1.log")) as f:
+        logged = "compute_dtype = bfloat16" in f.read()
+    os.makedirs(os.path.join(root, "bptrain"))
+    ggd_kernel.launches = 0
+    cli(["bptrain", *finetune_args(tfx, init_wts,
+                                   os.path.join(root, "bptrain"), 1,
+                                   "compute_dtype=bfloat16")])
+    torch.cuda.synchronize()
+    chain = same("cuda", "bptrain", "mlp.1.wts")
+    print(f"bf16    train --compute-dtype bfloat16 on the card: "
+          f"ggd_kernel.launches = {launches} for {want * EPOCHS} ML bunches; "
+          f"second run byte-identical = {rerun}; bptrain "
+          f"compute_dtype=bfloat16 epoch 1 byte-identical to train's = "
+          f"{chain}, {ggd_kernel.launches} launches for {want} bunches")
+    if not (launches == want * EPOCHS and ggd_kernel.launches == want
+            and rerun and chain and logged):
+        raise SystemExit("bfloat16 training on the card: launches, reruns, "
+                         "the bptrain epoch or the log's config line are off")
+    launches += ggd_kernel.launches
+    with open(os.path.join(root, "cuda", "mlp.2.wts"), "rb") as f1, \
+            open(os.path.join(os.path.dirname(root), "cuda", "mlp.2.wts"),
+                 "rb") as f2:
+        if f1.read() == f2.read():
+            raise SystemExit("bfloat16 training wrote the float32 run's bytes")
+
+    lr = ("--lrate", AGREE_LRATE)
+    cuda_rec = run_train(tfx, init_wts, os.path.join(root, "cuda_lr"),
+                         "cuda", *flag, *lr)
+    t0 = time.perf_counter()
+    cpu_rec = run_train(tfx, init_wts, os.path.join(root, "cpu_lr"), "cpu",
+                        *flag, *lr)
+    cpu_s = time.perf_counter() - t0
+    w0 = read_wts(init_wts)
+    w_cuda = read_wts(os.path.join(root, "cuda_lr", "mlp.2.wts"))
+    w_cpu = read_wts(os.path.join(root, "cpu_lr", "mlp.2.wts"))
+    rels = []
+    for a, g, c in zip(w0, w_cuda, w_cpu):
+        for k in ("w", "b"):
+            d_cuda = g[k].astype(np.float64) - a[k]
+            d_cpu = c[k].astype(np.float64) - a[k]
+            rels.append(np.linalg.norm(d_cuda - d_cpu)
+                        / np.linalg.norm(d_cpu))
+    worst_cv = max(abs(rc[k] - rp[k]) / abs(rp[k])
+                   for rc, rp in zip(cuda_rec, cpu_rec)
+                   for k in ("cv_squared_error", "cv_abs_error",
+                             "cv_ggd_loglik"))
+    print(f"bf16    train at lrate {AGREE_LRATE}, card against CPU (CPU "
+          f"{cpu_s:.2f} s): |dW_cuda - dW_cpu| / |dW_cpu| per layer (w, b) = "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (tolerance "
+          f"{BF16_TRAIN_DW_RTOL}); CV metrics within {worst_cv:.3e} "
+          f"(tolerance {BF16_TRAIN_CV_RTOL})")
+    if not (max(rels) <= BF16_TRAIN_DW_RTOL
+            and worst_cv <= BF16_TRAIN_CV_RTOL):
+        raise SystemExit("bfloat16 training on the card is off the CPU's")
+
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        train_rate(dev, tfx, init_wts, compute_dtype=name)
+    big_bunch_ms(dev, tfx, init_wts)
     return launches
+
+
+def bf16_extras(dev, root: str, fx: dict, tfx: dict, init_wts: str) -> None:
+    """``wav_to_mfcc`` on the card against the CPU, and one training bunch
+    under ``profile_trace``."""
+    got = wav_to_mfcc(fx["waves"][1], device=dev)
+    want = wav_to_mfcc(fx["waves"][1], device="cpu")
+    err = float(np.abs(got - want).max())
+    print(f"bf16    wav_to_mfcc: {got.shape} cepstra, max |cuda-cpu| = "
+          f"{err:.3e} (tolerance {MFCC_ATOL})")
+    if (got.shape != (len(fx["waves"][1]) // SHIFT - 1, 13)
+            or got.dtype != np.float32 or not err <= MFCC_ATOL):
+        raise SystemExit("wav_to_mfcc on the card is off the CPU's")
+
+    ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
+                          tuple(int(x) for x in tfx["train_sents"].split("-")),
+                          tfx["traincache"])
+    noisy, clean = load_device_frames(ds, dev)
+    starts = torch.arange(BUNCH, device=dev)[None]
+    hyper = TrainHyper(compute_dtype="bfloat16")
+    state = load_checkpoint(init_wts, dev)
+    train_chunk(state, noisy, clean, starts, float(AGREE_LRATE), hyper)
+    log_dir = os.path.join(root, "trace")
+    with profile_trace(log_dir):
+        train_chunk(state, noisy, clean, starts, float(AGREE_LRATE), hyper)
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise SystemExit(f"profile_trace left {files} in {log_dir}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ggd = sum("ggd" in name for name in kernels)
+    size = os.path.getsize(os.path.join(log_dir, files[0]))
+    print(f"bf16    profile_trace of one bfloat16 bunch: {files[0]}, {size} "
+          f"bytes, {len(kernels)} CUDA kernels in it, {ggd} of them the GGD "
+          f"kernel")
+    if not kernels or ggd != 1:
+        raise SystemExit("the trace holds no CUDA kernels, or not one GGD "
+                         "kernel")
+
+
+def bf16_phase(dev, root: str, fx: dict, train: dict, fp32_hops: dict
+               ) -> dict:
+    """-> the phase's LPS and GGD kernel launches."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    bf16_forward(dev, fx)
+    lps_launches = bf16_decode(dev, fx)
+    lps_launches += bf16_stream(fx, fp32_hops)
+    ggd_launches = bf16_train(dev, root, train["tfx"], train["init_wts"])
+    bf16_extras(dev, root, fx, train["tfx"], train["init_wts"])
+    print(f"bf16    bfloat16 phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return {"lps_launches": lps_launches, "ggd_launches": ggd_launches}
 
 
 def main() -> int:
@@ -1143,10 +1637,13 @@ def main() -> int:
         train = train_phase(dev, root)
         pipe = pipeline_phase(os.path.join(root, "pipeline"),
                               train["quiet"])
-        stream_launches = stream_phase(root, fx)
+        stream_launches, fp32_hops = stream_phase(root, fx)
+        bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
+                          fp32_hops)
 
-    # Launches: over the decode, streaming (graph replays included) and
-    # pipeline paths; over the training and pipeline paths.  Device time
+    # Launches: over the decode, streaming (graph replays included),
+    # pipeline and bfloat16 paths; over the training, pipeline and bfloat16
+    # paths.  Device time
     # (CUDA-graph replay) at the main path's shapes: the batched decode's
     # rows, the parity bunch.  Neither kernel's function is one PyTorch
     # call, so there is no library time.
@@ -1154,13 +1651,15 @@ def main() -> int:
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
-        "launches": launches + stream_launches + pipe["lps_launches"],
+        "launches": (launches + stream_launches + pipe["lps_launches"]
+                     + bf16["lps_launches"]),
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": train["launches"] + pipe["ggd_launches"],
+        "launches": (train["launches"] + pipe["ggd_launches"]
+                     + bf16["ggd_launches"]),
         "max_abs_err": ggd["max_abs_err"],
         **ggd["times"][BUNCH], "library_ms": None}]}))
     print(f"card    {card}")

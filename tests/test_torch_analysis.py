@@ -5,6 +5,12 @@ to atol 1e-3 in the log domain: the port sums the DFT product in float64,
 JAX in float32, and a float32 sum misses the log power of a bin ~60 dB
 below its frame by up to ~2e-4 on these inputs.  Floor rows (all-zero
 frames) must be exactly -50 on both sides.
+
+The dormant MFCC path: ``mel_filterbank`` and ``dct_matrix`` are numpy
+copies and must be equal to the bit.  ``wav_to_mfcc`` is held to atol 1e-3:
+a mel band sums 4-31 power bins, so the spectrum's float32 against float64
+sums move its log by ~1e-6 relative to the band's strongest bin, and the
+DCT sums 23 such logs of size ~20-30 in float32 (measured 1.2e-4).
 """
 
 import jax.numpy as jnp
@@ -92,6 +98,49 @@ def test_wav_to_lps_matches_jax(rate, win_size, n_samples):
     assert got.shape == want.shape
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=LPS_ATOL)
+
+
+def test_mel_and_dct_matrices_are_exact_copies():
+    for name in ("NUM_CHANNELS", "NUM_CEP_COEFF", "MEL_START_FREQ"):
+        assert getattr(analysis, name) == getattr(jax_analysis, name)
+    for kw in ({}, {"n_channels": 15, "sample_freq": 8000.0,
+                    "fft_length": 256}):
+        got = analysis.mel_filterbank(**kw)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, jax_analysis.mel_filterbank(**kw))
+    assert analysis.mel_filterbank().shape == (257, 23)
+    for args in ((), (8, 15)):
+        np.testing.assert_array_equal(analysis.dct_matrix(*args),
+                                      jax_analysis.dct_matrix(*args))
+    assert analysis.dct_matrix().shape == (23, 13)
+
+
+@pytest.mark.parametrize("n_samples", [16000 + 123, 3000, 768])
+def test_wav_to_mfcc_matches_jax(n_samples):
+    wave = _wave(n_samples, seed=n_samples)
+    got = analysis.wav_to_mfcc(wave, device="cpu")
+    want = jax_analysis.wav_to_mfcc(wave)
+    assert got.dtype == np.float32
+    assert got.shape == want.shape == (n_samples // 256 - 1, 13)
+    np.testing.assert_allclose(got, want, rtol=0, atol=LPS_ATOL)
+    frames = analysis.frame_signal(wave)
+    frames[0] = 0.0                       # a silent frame: floored mel
+    got = analysis.mfcc_from_frames(torch.from_numpy(frames)).numpy()
+    want = np.asarray(jax_analysis.mfcc_from_frames(jnp.asarray(frames)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=LPS_ATOL)
+    assert got[0, -1] == -50.0 * 23       # c0 = the plain sum of the logs
+
+
+def test_wav_to_mfcc_empty_wave_and_bad_frames():
+    for n in (0, 511):
+        got = analysis.wav_to_mfcc(np.zeros(n, np.int16), device="cpu")
+        assert got.shape == (0, 13) and got.dtype == np.float32
+        assert jax_analysis.wav_to_mfcc(np.zeros(n, np.int16)).shape == (0, 13)
+    with pytest.raises(ValueError, match="frames must be"):
+        analysis.mfcc_from_frames(torch.zeros(3, 256))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            analysis.wav_to_mfcc(np.zeros(4000, np.int16))
 
 
 def test_lps_from_frames_rejects_bad_input():

@@ -14,7 +14,14 @@
   ``train --epochs 2`` with no sidecar written, and a stray sidecar beside
   ``initwts_file`` changes nothing (momentum restarts every epoch).
 - The random-init path at lrate 0 writes bitwise ``tpu_se``'s ``.wts``.
-- Settings the port does not run stop it: ``compute_dtype=bfloat16``,
+- ``compute_dtype=bfloat16``: a chained 2-epoch ``bptrain`` bitwise equal
+  to ``train --compute-dtype bfloat16 --epochs 2``; one epoch against
+  ``tpu_se`` bptrain with the same key: each tensor's change within 5 % in
+  norm and each weight within atol 5e-4 (the port rounds the backward
+  cotangent to bfloat16, and weights that differ in their last digits
+  round to neighbouring bfloat16 values; ``tests/test_torch_train.py``),
+  the CV log values within rtol 1e-4.
+- Settings the port does not run stop it: ``compute_dtype=float16``,
   ``mesh_data``/``mesh_model`` > 1, a bad ``device`` or
   ``device_resident``, and ``device=cuda`` without a card.
 
@@ -88,13 +95,13 @@ def finetune_args(pair, out, epoch=1, initwts=None, seed=777, lrate=0.1,
         "hid_omit=0.1", *extra]
 
 
-def train_argv(pair, out, epochs, seed=777):
+def train_argv(pair, out, epochs, seed=777, extra=()):
     return ["train", "--fea-file", pair["fea"], "--targ-file", pair["targ"],
             "--norm-file", pair["norm"], "--init-wts", pair["init"],
             "--out-dir", str(out), "--layersizes", SIZES,
             "--epochs", str(epochs), "--seed", str(seed),
             "--traincache", "512", "--train-sents", "0-7",
-            "--cv-sents", "8-9", "--device", "cpu"]
+            "--cv-sents", "8-9", "--device", "cpu", *extra]
 
 
 def _cv_values(log):
@@ -206,6 +213,48 @@ def test_bptrain_chain_equals_train_2_epochs(pair, one_epoch, tmp_path):
         assert got.read_bytes() == (tmp_path / "train" / want).read_bytes()
 
 
+def test_bptrain_bf16_chain_equals_train_and_matches_tpu_se(pair, one_epoch,
+                                                            tmp_path):
+    bf16 = ["compute_dtype=bfloat16"]
+    out = {name: tmp_path / name for name in ("port", "jax", "train")}
+    for d in out.values():
+        d.mkdir()
+    ggd_kernel.launches = 0
+    assert main(["bptrain", *finetune_args(
+        pair, out["port"], extra=bf16 + ["device=cpu"])]) == 0
+    assert main(["bptrain", *finetune_args(
+        pair, out["port"], epoch=2, initwts=out["port"] / "mlp.1.wts",
+        seed=777 + 345, extra=bf16 + ["device=cpu"])]) == 0
+    assert ggd_kernel.launches == 0
+    assert main(train_argv(pair, out["train"], 2,
+                           extra=["--compute-dtype", "bfloat16"])) == 0
+    for name in ("mlp.1.wts", "mlp.2.wts"):
+        assert ((out["port"] / name).read_bytes()
+                == (out["train"] / name).read_bytes())
+    assert ((out["port"] / "mlp.1.wts").read_bytes()
+            != (one_epoch["port"] / "mlp.1.wts").read_bytes())
+    assert "compute_dtype: bfloat16" in (out["port"] / "mlp.1.log").read_text()
+
+    assert ref_main(["bptrain", *finetune_args(pair, out["jax"],
+                                               extra=bf16)]) == 0
+    start = ref_io.read_wts(pair["init"])
+    got = read_wts(out["port"] / "mlp.1.wts")
+    want = ref_io.read_wts(out["jax"] / "mlp.1.wts")
+    for g, w, a in zip(got, want, start):
+        for k in ("w", "b"):
+            assert g[k].dtype == np.float32
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=5e-4)
+            if np.any(w[k] != a[k]):
+                rel = (np.linalg.norm(g[k].astype(np.float64) - w[k])
+                       / np.linalg.norm(w[k].astype(np.float64) - a[k]))
+                assert rel <= 0.05, (k, rel)
+    got_cv = _cv_values((out["port"] / "mlp.1.log").read_text())
+    want_cv = _cv_values((out["jax"] / "mlp.1.log").read_text())
+    assert sorted(got_cv) == sorted(want_cv) and len(got_cv) == 3
+    for k in got_cv:
+        assert got_cv[k] == pytest.approx(want_cv[k], rel=LOG_RTOL)
+
+
 def test_stray_sidecar_is_ignored(pair, one_epoch, tmp_path):
     """A velocity sidecar beside initwts_file must not carry momentum into
     the epoch: the result equals the run without it."""
@@ -246,7 +295,8 @@ def test_random_init_path_matches_tpu_se(pair, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["compute_dtype=bfloat16"], SystemExit, "compute_dtype=bfloat16"),
+    (["compute_dtype=float16"], SystemExit,
+     "compute_dtype=float16 is not float32 or bfloat16"),
     (["mesh_data=2"], SystemExit, "mesh_data=2"),
     (["mesh_model=2"], SystemExit, "mesh_model=2"),
     (["device_resident=sometimes"], SystemExit, "device_resident"),

@@ -6,6 +6,19 @@ Tolerances: int16 waves within 1 LSB (float32 sums in another order can
 flip a truncation); enhanced LPS within atol 1e-3 (the port's LPS sums in
 float64, JAX's in float32, ~2e-4 apart on near-empty bins, then the FFN
 and blend); info.txt SegSNR/LSD within 1e-3.
+
+``compute_dtype=bfloat16`` decodes are compared by their enhanced LPS.  On
+the SAME noisy LPS (``enhance_lps``) the two packages differ only in the
+order of their float32 sums, which can round a hidden activation to the
+neighbouring bfloat16 value; one such flip moves a de-normalized output by
+at most 2^-8 * max|w_last| / min(inv_std) = 3.8e-3, the test's atol
+(measured: 1.9e-6, one float32 ulp, where the float32 decode is 4e-3 to
+2e-2 away).
+Through ``enhance`` the noisy LPS itself differs (float64 against float32
+sums, ~2e-4 on near-empty bins), so many inputs round to another bfloat16
+value: atol 0.05 on an LPS of scale ~26 (measured 0.011; the bfloat16 and
+float32 decodes are 0.02 apart).  bfloat16 waves need not be within 1 LSB
+of each other and are not gated.
 """
 
 import os
@@ -19,16 +32,18 @@ import torch
 from tpu_se.infer import Enhancer as JaxEnhancer
 from tpu_se.infer import decode_files as jax_decode_files
 from tpu_se.io import read_wav, write_norm, write_wav, write_wts
+from tpu_se.io import read_norm, read_wts
 from tpu_se_torch.cli.main import build_parser
 from tpu_se_torch.cli.main import main as cli_main
 from tpu_se_torch.dsp.analysis import rate_config, wav_to_lps
-from tpu_se_torch.infer import Enhancer, decode_files
+from tpu_se_torch.infer import Enhancer, decode_files, enhance_utterance
 from tpu_se_torch.infer.decode import trunc_int16
 from tpu_se_torch.models import init_params
 from tpu_se_torch.ops import lps_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LPS_ATOL = 1e-3
+BF16_LPS_ATOL = 0.05
 INFO_ATOL = 1e-3
 LENGTHS = (9000, 12345, 6000)
 BLENDS = [0.0, 0.4, "auto"]
@@ -150,6 +165,75 @@ def test_enhance_lps_matches_jax(fx):
     lps = wav_to_lps(fx["noisy"][1], device="cpu")
     np.testing.assert_allclose(ours.enhance_lps(lps), theirs.enhance_lps(lps),
                                rtol=0, atol=LPS_ATOL)
+
+
+@pytest.mark.parametrize("blend", BLENDS)
+def test_enhance_lps_bf16_matches_jax(fx, blend):
+    import jax.numpy as jnp
+
+    ours = Enhancer(fx["wts"], fx["norm"], device="cpu", blend=blend,
+                    compute_dtype="bfloat16")
+    theirs = JaxEnhancer(fx["wts"], fx["norm"], blend=blend,
+                         compute_dtype=jnp.bfloat16)
+    plain = Enhancer(fx["wts"], fx["norm"], device="cpu", blend=blend)
+    assert ours.compute_dtype == torch.bfloat16
+    assert [w.dtype for w in ours.cast_weights] == [torch.bfloat16] * 3
+    assert all(w.dtype == torch.float32 for w in ours.model.weights)
+    flip = (2.0 ** -8 * np.abs(read_wts(fx["wts"])[-1]["w"]).max()
+            / read_norm(fx["norm"], 257)[1].min())
+    for wave in fx["noisy"]:
+        lps = wav_to_lps(wave, device="cpu")
+        got, want = ours.enhance_lps(lps), theirs.enhance_lps(lps)
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=flip)
+        # The knob is on: the float32 decode is far further away.
+        assert (np.abs(plain.enhance_lps(lps) - want).max()
+                > 100 * np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("blend", [0.0, "auto"])
+def test_enhance_bf16_matches_jax(fx, blend):
+    import jax.numpy as jnp
+
+    ours = Enhancer(fx["wts"], fx["norm"], device="cpu", blend=blend,
+                    compute_dtype=torch.bfloat16)
+    theirs = JaxEnhancer(fx["wts"], fx["norm"], blend=blend,
+                         compute_dtype=jnp.bfloat16)
+    for wave in fx["noisy"]:
+        got, want = ours.enhance(wave), theirs.enhance(wave)
+        assert got[0].dtype == np.int16 and got[0].shape == want[0].shape
+        np.testing.assert_allclose(got[2], want[2], rtol=0,
+                                   atol=BF16_LPS_ATOL)
+    got = ours.enhance_batch(fx["noisy"])
+    want = theirs.enhance_batch(fx["noisy"])
+    for g, w, wave in zip(got, want, fx["noisy"]):
+        np.testing.assert_allclose(g[2], w[2], rtol=0, atol=BF16_LPS_ATOL)
+        # batch == single within the port (another product shape).
+        np.testing.assert_allclose(g[2], ours.enhance(wave)[2], rtol=0,
+                                   atol=BF16_LPS_ATOL)
+    # The int16 fast path is the same decode.
+    for g, w in zip(ours.enhance_batch_waves(fx["noisy"]), got):
+        np.testing.assert_array_equal(g, w[0])
+
+
+def test_enhancer_compute_dtype_default_and_names(fx):
+    wave = fx["noisy"][0]
+    default = Enhancer(fx["wts"], fx["norm"], device="cpu")
+    assert default.compute_dtype == torch.float32
+    assert default.cast_weights is None
+    named = Enhancer(fx["wts"], fx["norm"], device="cpu",
+                     compute_dtype="float32")
+    for a, b in zip(default.enhance(wave), named.enhance(wave)):
+        np.testing.assert_array_equal(a, b)
+    for bad in ("float16", torch.float16, None):
+        with pytest.raises(ValueError, match="unsupported compute dtype"):
+            Enhancer(fx["wts"], fx["norm"], device="cpu", compute_dtype=bad)
+    got = enhance_utterance(fx["wts"], fx["norm"], wave, device="cpu",
+                            compute_dtype="bfloat16")
+    want = Enhancer(fx["wts"], fx["norm"], device="cpu",
+                    compute_dtype=torch.bfloat16).enhance(wave)[0]
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, default.enhance(wave)[0])
 
 
 @pytest.mark.parametrize("rate", [8000, 11025])

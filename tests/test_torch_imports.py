@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import test_lint
-from tpu_se_torch.utils import resolve_device
+from tpu_se_torch.utils import resolve_compute_dtype, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_MODULES = sorted((ROOT / "tpu_se_torch").rglob("*.py")) + [
@@ -29,6 +29,7 @@ def test_port_imports_no_jax():
             "import tpu_se_torch.io.readahead\n"
             "import tpu_se_torch.train, tpu_se_torch.data\n"
             "import tpu_se_torch.losses, tpu_se_torch.utils.logging\n"
+            "import tpu_se_torch.utils.profiling, tpu_se_torch.utils.device\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'tpu_se'))\n"
@@ -47,16 +48,54 @@ def test_infer_exports_every_name_of_the_jax_package():
         assert callable(getattr(tpu_se_torch.infer, name)), name
 
 
+@pytest.mark.parametrize("package", ["dsp", "utils"])
+def test_package_exports_every_name_of_the_jax_package(package):
+    import importlib
+
+    ref = importlib.import_module(f"tpu_se.{package}")
+    port = importlib.import_module(f"tpu_se_torch.{package}")
+    assert set(ref.__all__) <= set(port.__all__)
+    assert len(set(port.__all__)) == len(port.__all__)
+    for name in port.__all__:
+        assert hasattr(port, name), name
+    new = {"dsp": ["NUM_CHANNELS", "NUM_CEP_COEFF", "MEL_START_FREQ",
+                   "mel_filterbank", "dct_matrix", "mfcc_from_frames",
+                   "wav_to_mfcc", "lps_to_wav"],
+           "utils": ["profile_trace", "StepTimer", "get_logger",
+                     "resolve_compute_dtype"]}[package]
+    assert set(new) <= set(port.__all__)
+
+
 def test_resolve_device_cpu_pins_fp32():
+    matmul = torch.backends.cuda.matmul
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = True
     try:
         assert resolve_device("cpu") == torch.device("cpu")
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cudnn.allow_tf32 is False
+        assert matmul.allow_bf16_reduced_precision_reduction is False
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+@pytest.mark.parametrize("given,want", [
+    ("float32", torch.float32), ("bfloat16", torch.bfloat16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)],
+    ids=str)
+def test_resolve_compute_dtype(given, want):
+    assert resolve_compute_dtype(given) is want
+
+
+@pytest.mark.parametrize("bad", ["float16", torch.float16, torch.float64,
+                                 "bf16", None, 32], ids=str)
+def test_resolve_compute_dtype_rejects_other_types(bad):
+    with pytest.raises(ValueError, match="unsupported compute dtype"):
+        resolve_compute_dtype(bad)
 
 
 @pytest.mark.parametrize("name", ["cuda", "cuda:0"])

@@ -15,7 +15,18 @@
   byte-identical ``mlp.1.wts``;
 - dropout, statistically (``jax.random``'s bits cannot be matched), and
   the shuffles with dropout on still JAX's;
-- the ``train`` and ``gen-rand-net`` CLI.
+- the ``train`` and ``gen-rand-net`` CLI;
+- ``compute_dtype=bfloat16`` (and ``act_dtype``): the port rounds the
+  backward cotangent to bfloat16 where JAX multiplies it unrounded
+  (relative 2^-9 per element before the sum), and weights that differ in
+  the last float32 digits round to neighbouring bfloat16 values in the
+  next bunch.  So ``train_chunk`` after three bunches is held by each
+  tensor's CHANGE, |dW_port - dW_jax| <= 2^-6 |dW_jax| in norm (measured
+  3e-3), alpha to rtol 2^-6; a 2-epoch ``run_training`` at (1799, 64, 257)
+  by 5 % of each tensor's change (measured 2.2 % in the first layer, whose
+  gradient sums to far less than its terms) and atol 5e-4 per weight, its
+  CV lines to rtol 1e-4; ``cv_chunk_metrics`` to rtol 1e-5.  With the
+  default arguments the float32 results are bit for bit what they were.
 
 Fixtures are written with the ``tpu_se.io`` writers inside the tests.
 """
@@ -34,6 +45,7 @@ import torch
 import tpu_se.io as ref_io
 import tpu_se.train as ref_train
 import tpu_se.train.loop as ref_loop
+import tpu_se.train.step as ref_step
 from tpu_se.models import init_params as jax_init_params
 from tpu_se.models import init_params_uniform as jax_init_params_uniform
 from tpu_se_torch import train
@@ -492,13 +504,171 @@ def test_train_cli_cuda_raises_without_gpu(pfile_pair, tmp_path):
     assert not (tmp_path / "out" / "mlp.1.wts").exists()
 
 
-@pytest.mark.parametrize("flag", [["--compute-dtype", "bfloat16"],
-                                  ["--mesh-data", "2"],
-                                  ["--coordinator", "localhost:1"]])
-def test_train_parser_rejects_left_out_flags(flag, capsys):
+@pytest.mark.parametrize("flag,message", [
+    (["--compute-dtype", "float16"], "invalid choice: 'float16'"),
+    (["--mesh-data", "2"], "unrecognized arguments"),
+    (["--coordinator", "localhost:1"], "unrecognized arguments")])
+def test_train_parser_rejects_left_out_flags(flag, message, capsys):
     with pytest.raises(SystemExit) as exc:
         build_parser().parse_args(["train", "--fea-file", "a",
                                    "--targ-file", "b", "--norm-file", "c",
                                    *flag])
     assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
+
+
+def _change_rel(got, want, start):
+    """|got - want| / |want - start| in norm: how far two runs' weight
+    changes are from each other."""
+    return (np.linalg.norm(got.astype(np.float64) - want)
+            / np.linalg.norm(want.astype(np.float64) - start))
+
+
+@pytest.mark.parametrize("act_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("ml,beta", [(True, 1.0), (False, 2.0)])
+def test_train_chunk_bf16_matches_jax(ml, beta, act_dtype):
+    noisy, clean, starts, layers = _tiny_problem()
+    kw = dict(beta=beta, ml=ml, momentum=0.9, weightcost=1e-5, bunchsize=8,
+              context=3, targ_offset=1, grad_scale="parity")
+    lr = 0.05
+    want = ref_train.train_chunk(
+        ref_train.make_train_state(
+            [{k: jnp.asarray(v) for k, v in l.items()} for l in layers], 5),
+        jnp.asarray(noisy), jnp.asarray(clean), jnp.asarray(starts),
+        jnp.float32(lr), ref_train.TrainHyper(
+            compute_dtype=jnp.bfloat16,
+            act_dtype=None if act_dtype is None else jnp.bfloat16, **kw))
+    hyper = train.TrainHyper(compute_dtype="bfloat16", act_dtype=act_dtype,
+                             **kw)
+    assert hyper.compute_dtype == torch.bfloat16
+    assert hyper.act_dtype in (None, torch.bfloat16)
+    state = train.make_train_state(params_from_numpy(layers, "cpu"))
+    got = train.train_chunk(state, torch.from_numpy(noisy),
+                            torch.from_numpy(clean),
+                            torch.from_numpy(starts.astype(np.int64)), lr,
+                            hyper)
+    for p, v, w, start in zip(train.param_layers(got.model), got.velocity,
+                              want.params, layers):
+        for k in ("w", "b"):
+            assert p[k].dtype == v[k].dtype == torch.float32
+            assert _change_rel(p[k].detach().numpy(), np.asarray(w[k]),
+                               start[k]) <= 2.0 ** -6, k
+    assert got.alpha.dtype == torch.float32
+    np.testing.assert_allclose(got.alpha.numpy(), np.asarray(want.alpha),
+                               rtol=2.0 ** -6)
+    # bfloat16 is another run than float32: further from it than from JAX.
+    plain = train.train_chunk(
+        train.make_train_state(params_from_numpy(layers, "cpu")),
+        torch.from_numpy(noisy), torch.from_numpy(clean),
+        torch.from_numpy(starts.astype(np.int64)), lr, train.TrainHyper(**kw))
+    w_last = train.param_layers(got.model)[-1]["w"].detach().numpy()
+    assert (np.abs(plain.model.weights[-1].detach().numpy() - w_last).max()
+            > 0)
+    assert ggd_kernel.launches == 0
+
+
+def test_train_hyper_defaults_keep_the_float32_bits():
+    noisy, clean, starts, layers = _tiny_problem()
+    kw = dict(beta=1.0, ml=True, bunchsize=8, context=3, targ_offset=1)
+    runs = []
+    for extra in ({}, {"compute_dtype": "float32", "act_dtype": None},
+                  {"compute_dtype": torch.float32}):
+        hyper = train.TrainHyper(**kw, **extra)
+        assert hyper.compute_dtype == torch.float32
+        state = train.make_train_state(params_from_numpy(layers, "cpu"))
+        train.train_chunk(state, torch.from_numpy(noisy),
+                          torch.from_numpy(clean),
+                          torch.from_numpy(starts.astype(np.int64)), 0.05,
+                          hyper)
+        runs.append(state)
+    for other in runs[1:]:
+        for a, b in zip(runs[0].model.parameters(), other.model.parameters()):
+            assert torch.equal(a, b)
+        assert torch.equal(runs[0].alpha, other.alpha)
+    for bad in ("float16", torch.float16, "bf16", 32):
+        with pytest.raises(ValueError, match="unsupported compute dtype"):
+            train.TrainHyper(compute_dtype=bad)
+    with pytest.raises(ValueError, match="unsupported compute dtype"):
+        train.TrainHyper(act_dtype="float16")
+    assert train.TrainConfig().compute_dtype == "float32"
+    assert train.TrainConfig(compute_dtype="bfloat16").hyper(
+        ).compute_dtype == torch.bfloat16
+
+
+def test_cv_bf16_matches_jax():
+    noisy, clean, starts, layers = _tiny_problem()
+    params = [{k: jnp.asarray(v) for k, v in l.items()} for l in layers]
+    alpha = np.linspace(0.5, 1.5, 5).astype(np.float32)
+    kw = dict(beta=0.9, context=3, targ_offset=1)
+    s = starts[0]
+    want = ref_step.cv_chunk_metrics(
+        params, jnp.asarray(noisy), jnp.asarray(clean), jnp.asarray(s),
+        jnp.ones(len(s), jnp.float32), jnp.asarray(alpha),
+        ref_train.TrainHyper(compute_dtype=jnp.bfloat16, **kw))
+    model = params_from_numpy(layers, "cpu")
+    got = train.cv_chunk_metrics(
+        model, torch.from_numpy(noisy), torch.from_numpy(clean),
+        torch.from_numpy(s.astype(np.int64)), torch.from_numpy(alpha),
+        train.TrainHyper(compute_dtype="bfloat16", **kw))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), [float(x) for x in want],
+                               rtol=1e-5)
+    out = train.cv_forward(model, torch.from_numpy(noisy),
+                           torch.from_numpy(s.astype(np.int64)), 3,
+                           compute_dtype=torch.bfloat16)
+    out_j = ref_step.cv_forward(params, jnp.asarray(noisy), jnp.asarray(s),
+                                 3, compute_dtype=jnp.bfloat16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=0,
+                               atol=2.0 ** -8 * np.abs(out_j).max())
+    assert not torch.equal(out, train.cv_forward(
+        model, torch.from_numpy(noisy), torch.from_numpy(s.astype(np.int64)),
+        3))
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(pfile_pair, tmp_path_factory):
+    """The 2-epoch schedule in bfloat16 through both packages."""
+    root = tmp_path_factory.mktemp("bf16_runs")
+    kw = _kw(pfile_pair, compute_dtype="bfloat16")
+    ref_train.run_training(
+        ref_train.TrainConfig(out_dir=str(root / "jax"), **kw),
+        log=lambda s: None)
+    train.run_training(train.TrainConfig(out_dir=str(root / "port"), **kw),
+                       "cpu", log=lambda s: None)
+    return root
+
+
+def test_run_training_bf16_matches_jax(bf16_runs, two_epoch_runs):
+    start = jax_init_params(11, NARROW)
+    for e in (1, 2):
+        got = read_wts(bf16_runs / "port" / f"mlp.{e}.wts")
+        want = ref_io.read_wts(bf16_runs / "jax" / f"mlp.{e}.wts")
+        for g, w, a in zip(got, want, start):
+            for k in ("w", "b"):
+                assert g[k].dtype == np.float32
+                np.testing.assert_allclose(g[k], w[k], rtol=0, atol=5e-4)
+                assert _change_rel(g[k], w[k], np.asarray(a[k])) <= 0.05
+        got_cv = _cv_lines(bf16_runs / "port" / f"mlp.{e}.log")
+        want_cv = _cv_lines(bf16_runs / "jax" / f"mlp.{e}.log")
+        for k in want_cv:
+            assert got_cv[k] == pytest.approx(want_cv[k], rel=1e-4)
+    # Another run than the float32 one, and its config line says so.
+    plain = read_wts(os.path.join(two_epoch_runs[1].out_dir, "mlp.2.wts"))
+    assert not np.array_equal(plain[0]["w"], got[0]["w"])
+    log = (bf16_runs / "port" / "mlp.1.log").read_text()
+    assert "compute_dtype = bfloat16" in log
+    assert not (bf16_runs / "port" / "mlp.2.wts.state.npz").exists()
+
+
+def test_train_cli_bf16_on_cpu(pfile_pair, bf16_runs, tmp_path):
+    """``train --compute-dtype bfloat16`` is the library's bfloat16 run."""
+    assert cli_main([
+        "train", "--fea-file", pfile_pair["fea_file"],
+        "--targ-file", pfile_pair["targ_file"],
+        "--norm-file", pfile_pair["norm_file"], "--out-dir", str(tmp_path),
+        "--layersizes", "1799,64,257", "--epochs", "2", "--traincache", "512",
+        "--seed", "11", "--train-sents", "0-7", "--cv-sents", "8-9",
+        "--compute-dtype", "bfloat16", "--device", "cpu"]) == 0
+    for e in (1, 2):
+        assert (tmp_path / f"mlp.{e}.wts").read_bytes() == \
+            (bf16_runs / "port" / f"mlp.{e}.wts").read_bytes()

@@ -19,8 +19,9 @@ when the CV squared error is not finite.
 An argument without ``=`` is a format error; an unknown key is ignored
 silently (that is how the reference swallows ``numlayers=``).  The
 ``tpu_se`` extension keys parse the same way, plus ``device`` (``cuda``,
-the default, or ``cpu``).  ``compute_dtype=bfloat16``, ``mesh_data>1`` and
-``mesh_model>1`` are not supported by the port and stop the run.
+the default, or ``cpu``).  ``compute_dtype`` is ``float32`` or ``bfloat16``
+(anything else stops the run); ``mesh_data>1`` and ``mesh_model>1`` are not
+supported by the port and stop the run.
 """
 
 from __future__ import annotations
@@ -100,10 +101,9 @@ def _check_supported(cfg: dict) -> None:
     for req in ("fea_file", "targ_file", "norm_file", "outwts_file"):
         if not cfg[req]:
             raise SystemExit(f"bptrain: {req}= is required")
-    if cfg["compute_dtype"] != "float32":
+    if cfg["compute_dtype"] not in ("float32", "bfloat16"):
         raise SystemExit(f"bptrain: compute_dtype={cfg['compute_dtype']} is "
-                         "not supported by tpu_se_torch (float32 only); "
-                         "run it with tpu_se")
+                         "not float32 or bfloat16")
     if cfg["mesh_data"] > 1 or cfg["mesh_model"] > 1:
         raise SystemExit(f"bptrain: mesh_data={cfg['mesh_data']} "
                          f"mesh_model={cfg['mesh_model']}: tpu_se_torch "
@@ -134,6 +134,7 @@ def run_bptrain(cfg: dict, log=print) -> int:
         shapefactor=cfg["shapefactor"], momentum=cfg["momentum"],
         weightcost=cfg["weightcost"], fea_context=cfg["fea_context"],
         targ_offset=cfg["targ_offset"], grad_scale=cfg["grad_scale"],
+        compute_dtype=cfg["compute_dtype"],
         activation=cfg["activation"], dropout_flag=bool(cfg["dropoutflag"]),
         visible_omit=cfg["visible_omit"], hid_omit=cfg["hid_omit"])
     hyper = tc.hyper()

@@ -291,6 +291,7 @@ def cmd_train(args) -> int:
         train_sent_range=tuple(int(s) for s in args.train_sents.split("-")),
         cv_sent_range=tuple(int(s) for s in args.cv_sents.split("-")),
         epochs=args.epochs, grad_scale=args.grad_scale,
+        compute_dtype=args.compute_dtype,
         carry_velocity=args.carry_velocity,
         activation=args.activation,
         dropout_flag=bool(args.dropoutflag),
@@ -414,6 +415,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--epochs", type=int, default=50)
     s.add_argument("--grad-scale", default="parity",
                    choices=["parity", "natural"])
+    s.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="type of the products' operands; bfloat16 sums in "
+                        "float32 and keeps the weights float32")
     s.add_argument("--carry-velocity", action="store_true")
     s.add_argument("--init-ranges", default="",
                    metavar="W_MIN,W_MAX,B_MIN,B_MAX",

@@ -13,6 +13,10 @@ The reference semantics they encode (``Wav2LogSpec_be.c``):
 ``lps_from_frames`` runs the windowed-DFT product with the fused
 square/add/log epilogue: the hand-written kernel for CUDA tensors
 (``tpu_se_torch.ops.lps_kernel``), its plain PyTorch version for CPU ones.
+
+The dormant ETSI mel/cepstral path (``mel_filterbank``, ``dct_matrix``,
+``mfcc_from_frames``, ``wav_to_mfcc``) is here with the status it has in the
+reference: available, unused by the LPS pipeline.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ __all__ = [
     "FRAME_LENGTH", "FRAME_SHIFT", "FFT_LENGTH", "NUM_BINS", "LOG_FLOOR",
     "RATE_CONFIGS", "rate_config", "hamming_window", "dft_basis",
     "num_frames", "frame_signal", "lps_from_frames", "wav_to_lps",
+    "NUM_CHANNELS", "NUM_CEP_COEFF", "MEL_START_FREQ", "mel_filterbank",
+    "dct_matrix", "mfcc_from_frames", "wav_to_mfcc",
 ]
 
 FRAME_LENGTH = 512
@@ -183,3 +189,111 @@ def wav_to_lps(wave: np.ndarray, method: str = "matmul",
         return np.zeros((0, n_bins * stack), dtype=np.float32)
     cols = [out[i: t - stack + 1 + i] for i in range(stack)]
     return np.concatenate(cols, axis=1)
+
+
+# --- Dormant ETSI mel/cepstral path -----------------------------------------
+#
+# The reference front end carries the ETSI Aurora mel-filterbank + DCT
+# machinery but ships with it commented out of the frame loop
+# (``Wav2LogSpec_be.c:480-505``; kernels ``FEfunc.c:472-739``).  As in
+# ``tpu_se`` the chain power -> mel -> log -> DCT is three matrix products;
+# the two matrices are numpy copies, equal to ``tpu_se.dsp``'s to the bit.
+
+NUM_CHANNELS = 23      # Wav2LogSpec_be.c:62
+NUM_CEP_COEFF = 13     # c1..c12 + c0, Wav2LogSpec_be.c:67
+MEL_START_FREQ = 64.0  # Wav2LogSpec_be.c:63-65 (all rates use 64 Hz)
+
+
+def _hz_to_mel(f):
+    return 2595.0 * np.log10(1.0 + f / 700.0)
+
+
+def _mel_to_hz(m):
+    return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank(n_channels: int = NUM_CHANNELS,
+                   start_freq: float = MEL_START_FREQ,
+                   sample_freq: float = 16000.0,
+                   fft_length: int = FFT_LENGTH) -> np.ndarray:
+    """[NUM_BINS, n_channels] triangular mel filterbank as a dense matrix.
+
+    Reproduces ``InitFFTWindows`` + ``ComputeTriangle`` (``FEfunc.c:472-604``)
+    exactly: band i spans mel fractions i/(C+1) .. (i+2)/(C+1) of
+    [mel(start), mel(fs/2)], edges snapped to FFT bins by round(), lower
+    slope (j+1)/low_len, upper slope (high_len-j)/high_len -- applied to the
+    power spectrum by ``power @ mel_filterbank()``.
+    """
+    n_bins = fft_length // 2 + 1
+    start_mel = _hz_to_mel(start_freq)
+    top_mel = _hz_to_mel(sample_freq / 2.0)
+
+    def edge_bin(i):
+        freq = _mel_to_hz(start_mel + i / (n_channels + 1)
+                          * (top_mel - start_mel))
+        return int(fft_length * freq / sample_freq + 0.5)
+
+    starts = [edge_bin(i) for i in range(n_channels)]
+    uppers = [edge_bin(i + 2) for i in range(n_channels)]
+    fb = np.zeros((n_bins, n_channels), dtype=np.float32)
+    for i in range(n_channels):
+        start, upper = starts[i], uppers[i]
+        # The low part ends at the NEXT band's start (the previous band's
+        # upper edge for the last channel): ComputeTriangle,
+        # FEfunc.c:573-604.
+        low_end = starts[i + 1] if i + 1 < n_channels else uppers[i - 1]
+        low_len = low_end - start + 1
+        high_len = (upper - start + 1) - low_len + 1
+        for j in range(low_len):
+            fb[start + j, i] = (j + 1) / low_len
+        for j in range(1, high_len):
+            fb[start + low_len + j - 1, i] = (high_len - j) / high_len
+    return fb
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n_cep: int = NUM_CEP_COEFF,
+               n_channels: int = NUM_CHANNELS) -> np.ndarray:
+    """[n_channels, n_cep] DCT basis in the reference's output order.
+
+    ``InitDCTMatrix``/``DCT`` (``FEfunc.c:674-739``): columns are c1..c12
+    (cos(pi*i/C*(j+0.5))) followed by c0 (plain sum) LAST.
+    """
+    mx = np.zeros((n_channels, n_cep), dtype=np.float32)
+    j = np.arange(n_channels)
+    for i in range(1, n_cep):
+        mx[:, i - 1] = np.cos(np.pi * i / n_channels * (j + 0.5))
+    mx[:, n_cep - 1] = 1.0
+    return mx
+
+
+def mfcc_from_frames(frames: torch.Tensor) -> torch.Tensor:
+    """float32 frames [T, 512] -> [T, 13] cepstra (c1..c12, c0), on the
+    frames' device.
+
+    The dormant reference chain (``Wav2LogSpec_be.c:480-505``): power
+    spectrum -> mel filterbank -> natural log with the e^-50 floor
+    (``ENERGYFLOOR_FB``) -> DCT.  The spectrum comes from the product that
+    ``lps_plain`` uses (float64 sums, re and im rounded to float32): the
+    LPS kernel writes log power only.  The two small products are float32.
+    """
+    if frames.dim() != 2 or frames.shape[1] != FRAME_LENGTH:
+        raise ValueError(f"frames must be [T, {FRAME_LENGTH}], got "
+                         f"{tuple(frames.shape)}")
+    frames = frames.to(torch.float32)
+    device = frames.device
+    basis = _resident_basis(FRAME_LENGTH, device)
+    spec = (frames.double() @ basis.double()).float()
+    re, im = spec[:, :NUM_BINS], spec[:, NUM_BINS:]
+    mel = (re * re + im * im) @ torch.from_numpy(mel_filterbank()).to(device)
+    return floored_log(mel) @ torch.from_numpy(dct_matrix()).to(device)
+
+
+def wav_to_mfcc(wave: np.ndarray, device="cuda") -> np.ndarray:
+    """Waveform -> [T, 13] MFCC via the dormant ETSI path, on ``device``."""
+    device = resolve_device(device)
+    frames = frame_signal(wave)
+    if frames.shape[0] == 0:
+        return np.zeros((0, NUM_CEP_COEFF), dtype=np.float32)
+    return mfcc_from_frames(torch.from_numpy(frames).to(device)).cpu().numpy()

@@ -110,3 +110,9 @@ def reconstruct(lps_enh: np.ndarray, noisy_wave: np.ndarray,
         torch.ones(t, device=device), frame_shift, ola_kind)
     wave = wave.cpu().numpy()[: t * frame_shift + (frame_length - frame_shift)]
     return np.trunc(wave).astype(np.int16), recon.cpu().numpy()
+
+
+def lps_to_wav(lps_enh: np.ndarray, noisy_wave: np.ndarray,
+               sample_rate: int = 16000, device="cuda") -> np.ndarray:
+    """``reconstruct``'s int16 waveform alone."""
+    return reconstruct(lps_enh, noisy_wave, sample_rate, device=device)[0]

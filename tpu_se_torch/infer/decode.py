@@ -29,7 +29,7 @@ from tpu_se_torch.dsp.metrics import segsnr_lsd_pair
 from tpu_se_torch.dsp.synthesis import _synth_and_ola, reconstruct
 from tpu_se_torch.io import read_norm, read_wav, read_wts, write_wav
 from tpu_se_torch.models.ffn import FFN, params_from_numpy
-from tpu_se_torch.utils.device import resolve_device
+from tpu_se_torch.utils.device import resolve_compute_dtype, resolve_device
 
 # Adaptive-blend map (tpu_se/infer/decode.py): lam = LMAX *
 # exp(-suppression_dB / TAU), clipped to [0, 0.9], from the utterance's
@@ -78,7 +78,9 @@ def _check_blend(blend):
 
 def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
                  inv_std: torch.Tensor, n_valid: torch.Tensor,
-                 context: int = 7, blend=0.0) -> torch.Tensor:
+                 context: int = 7, blend=0.0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 cast_weights: list | None = None) -> torch.Tensor:
     """Normalized forward over edge-replicated spliced frames, on device.
 
     ``lps`` [B, T, D] padded, ``n_valid`` [B] true frame counts.  The
@@ -87,6 +89,7 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
     ``blend`` in [0, 1) moves the enhanced LPS that fraction back toward
     the noisy LPS (log domain); ``"auto"`` picks the fraction per
     utterance from the model's mean suppression over its valid rows.
+    ``compute_dtype`` and ``cast_weights`` go to ``FFN.forward``.
     """
     b, t, d = lps.shape
     normed = (lps - mean) * inv_std
@@ -98,7 +101,8 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
     idx = torch.minimum(idx.clamp(min=0)[None], last)           # [B, T, C]
     rows = torch.arange(b, device=lps.device)[:, None, None]
     x = normed[rows, idx].reshape(b * t, context * d)
-    enh = model(x).reshape(b, t, d) / inv_std + mean
+    enh = model(x, compute_dtype=compute_dtype,
+                cast_weights=cast_weights).reshape(b, t, d) / inv_std + mean
     if blend == "auto":
         valid = (steps[None, :] < n_valid[:, None]).to(lps.dtype)[..., None]
         supp_db = (((lps - enh) * valid).sum(dim=(1, 2))
@@ -115,7 +119,9 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
 def _decode_core(model: FFN, frames: torch.Tensor, mean: torch.Tensor,
                  inv_std: torch.Tensor, n_valid: torch.Tensor,
                  basis: torch.Tensor, window: torch.Tensor, frame_shift: int,
-                 context: int = 7, blend=0.0):
+                 context: int = 7, blend=0.0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 cast_weights: list | None = None):
     """The whole decode on one device: noisy frames [B, T, len] ->
     (OLA waveform [B, S], de-windowed recon frames [B, T, len],
     enhanced LPS [B, T, bins]).  ``basis`` and ``window`` are the
@@ -123,7 +129,8 @@ def _decode_core(model: FFN, frames: torch.Tensor, mean: torch.Tensor,
     b, t, length = frames.shape
     lps = lps_from_frames(frames.reshape(b * t, length),
                           basis=basis).reshape(b, t, -1)
-    enh = _enhance_lps(model, lps, mean, inv_std, n_valid, context, blend)
+    enh = _enhance_lps(model, lps, mean, inv_std, n_valid, context, blend,
+                       compute_dtype, cast_weights)
     valid = (torch.arange(t, device=frames.device)[None, :]
              < n_valid[:, None])
     wave, recon = _synth_and_ola(enh, frames, valid, frame_shift,
@@ -214,14 +221,21 @@ class Enhancer:
     smoothing, 0 is off, ``smooth=True`` alone is the reference's s=1) and
     ``postprocess``; smoothing and postprocessing run on the host between
     the forward pass and synthesis (``LogSpec2Wav.c:497-546,655-679``).
+    ``compute_dtype`` (``torch.float32``, ``torch.bfloat16`` or their names)
+    is the type of the network's product operands; the weights are frozen,
+    so their reduced copy is made here, once, and every decode reads it.
     """
 
     def __init__(self, wts_path, norm_path, device="cuda", context: int = 7,
                  postprocess: bool = False, smooth: bool = False,
                  smooth_strength=None, sample_rate: int = 16000,
-                 blend=0.0):
+                 blend=0.0, compute_dtype=torch.float32):
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.model = params_from_numpy(read_wts(wts_path), self.device)
+        self.cast_weights = (
+            None if self.compute_dtype == torch.float32
+            else self.model.cast_weights(self.compute_dtype))
         dim = self.model.biases[-1].shape[0]
         (self.frame_length, self.frame_shift,
          fft_length) = rate_config(sample_rate)
@@ -248,14 +262,16 @@ class Enhancer:
     def _decode(self, frames: torch.Tensor, n_valid: torch.Tensor):
         return _decode_core(self.model, frames, self.mean, self.inv_std,
                             n_valid, self.basis, self.window,
-                            self.frame_shift, self.context, self.blend)
+                            self.frame_shift, self.context, self.blend,
+                            self.compute_dtype, self.cast_weights)
 
     @torch.inference_mode()
     def enhance_lps(self, lps: np.ndarray) -> np.ndarray:
         """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins]."""
         n_valid = torch.tensor([lps.shape[0]], device=self.device)
         out = _enhance_lps(self.model, self._tensor(lps)[None], self.mean,
-                           self.inv_std, n_valid, self.context, self.blend)
+                           self.inv_std, n_valid, self.context, self.blend,
+                           self.compute_dtype, self.cast_weights)
         return out[0].cpu().numpy()
 
     @torch.inference_mode()
@@ -370,9 +386,11 @@ class Enhancer:
 
 
 def enhance_utterance(wts_path, norm_path, noisy_wave: np.ndarray,
-                      device="cuda") -> np.ndarray:
+                      device="cuda", compute_dtype=torch.float32
+                      ) -> np.ndarray:
     """One noisy int16 wave -> its enhanced int16 wave, on ``device``."""
-    return Enhancer(wts_path, norm_path, device=device).enhance(noisy_wave)[0]
+    return Enhancer(wts_path, norm_path, device=device,
+                    compute_dtype=compute_dtype).enhance(noisy_wave)[0]
 
 
 def decode_files(wts_path, norm_path, wav_paths: list, out_dir,

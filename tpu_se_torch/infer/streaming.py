@@ -49,7 +49,7 @@ from tpu_se_torch.infer.decode import (
 from tpu_se_torch.io import read_norm, read_wts
 from tpu_se_torch.models.ffn import FFN, params_from_numpy
 from tpu_se_torch.ops.lps_kernel import POWER_FLOOR
-from tpu_se_torch.utils.device import resolve_device
+from tpu_se_torch.utils.device import resolve_compute_dtype, resolve_device
 
 
 # Replays of a captured step graph, over every enhancer of the process.
@@ -87,6 +87,9 @@ class _Step(NamedTuple):
     frame_shift: int
     blend: object             # 0.0, a fraction in (0, 1), or "auto"
     smooth: object            # 0.0, a strength in (0, 1], or "auto"
+    compute_dtype: torch.dtype   # of the network's product operands
+    cast_weights: list | None    # model.cast_weights(compute_dtype), made
+                                 # once: a hop never casts a weight
 
 
 def _ring_hops(frame_length: int, frame_shift: int) -> int:
@@ -159,7 +162,9 @@ def _enhance_and_emit(step: _Step, state: StreamState
     blend, smooth = step.blend, step.smooth
 
     x = state.lps_ring.reshape(s, context * n_bins)
-    enh = step.model(x) / step.inv_std + step.mean
+    enh = step.model(x, compute_dtype=step.compute_dtype,
+                     cast_weights=step.cast_weights
+                     ) / step.inv_std + step.mean
     # The centre frame exists once count-1 >= half frames have been pushed.
     centre = state.count - 1 - half                           # [S] int32
     valid = centre >= 0
@@ -318,14 +323,19 @@ class StreamingEnhancer:
     ``graph=False`` runs the same step eagerly on the card: the reference
     that the replayed step is held against, bit for bit.
     The module's ``hops_replayed`` counts the replays of step graphs.
+    ``compute_dtype`` (``torch.float32``, ``torch.bfloat16`` or their names)
+    is the type of the network's product operands; the reduced copy of the
+    frozen weights is made once, here, and the captured step reads it.
     """
 
     SCAN_HOPS = 8  # hops per chunk that feed() sends through push_many()
 
     def __init__(self, wts_path, norm_path, n_streams: int = 1,
                  context: int = 7, sample_rate: int = 16000, blend=0.0,
-                 smooth_strength=None, device="cuda", graph: bool = True):
+                 smooth_strength=None, device="cuda", graph: bool = True,
+                 compute_dtype=torch.float32):
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.blend = _check_blend(blend)
         # As the batch Enhancer resolves it: a non-zero strength turns the
         # (causal) smoother on by itself; None/0 = off.
@@ -347,7 +357,9 @@ class StreamingEnhancer:
             window=torch.from_numpy(
                 hamming_window(self.frame_length)).to(self.device),
             frame_shift=self.frame_shift, blend=self.blend,
-            smooth=self.smooth)
+            smooth=self.smooth, compute_dtype=self.compute_dtype,
+            cast_weights=(None if self.compute_dtype == torch.float32
+                          else model.cast_weights(self.compute_dtype)))
         self.context = context
         self.half = (context - 1) // 2
         self.ring_hops = _ring_hops(self.frame_length, self.frame_shift)

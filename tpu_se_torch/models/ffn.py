@@ -6,6 +6,14 @@ x_l = W_l y_{l-1} + b_l, sigmoid on hidden layers, identity at the output).
 The weights keep the JAX layout ``w [n_in, n_out]`` -- the layout of the
 ``.wts`` codec's output and of ``tpu_se.models`` -- so a layer is
 ``torch.addmm(b, h, w)`` and no conversion transposes anything.
+
+``compute_dtype=torch.bfloat16`` is the reference's throughput knob
+(``tpu_se/models/ffn.py:92-111``): the operands of every product are
+rounded to bfloat16, the products are summed in float32, and everything
+else -- ``z``, the bias, the nonlinearity, the master weights, the output
+layer -- stays float32.  ``reduced_linear`` is that layer with the
+backward pass of ``jax.vjp``'s, rounding for rounding (see
+``_ReducedLinear``).
 """
 
 from __future__ import annotations
@@ -17,6 +25,71 @@ from torch import nn
 DEFAULT_LAYERSIZES = (1799, 2048, 2048, 2048, 257)
 
 _ACTIVATIONS = {"sigmoid": torch.sigmoid, "relu": torch.relu}
+
+
+def reduced_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for two reduced-precision (bfloat16) matrices, summed and
+    returned in float32.
+
+    On a CUDA device this is the tensor cores' product with a float32
+    result (``torch.mm(..., out_dtype=torch.float32)``); a bfloat16 result
+    would round ``z`` by 2^-9, which the reference never does.  On the CPU,
+    where PyTorch has no such product, the operands are widened first:
+    a bfloat16 x bfloat16 product is exact in float32, so this is the same
+    function up to the order of the float32 sums.  The choice follows the
+    tensors' device and nothing else.
+    """
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _ReducedLinear(torch.autograd.Function):
+    """``z = h.to(dtype) @ w.to(dtype) + b`` with float32 sums, and the
+    backward pass that ``jax.vjp`` gives the reference's layer.
+
+    JAX's transpose of ``dot(h.astype(bf16), w.astype(bf16),
+    preferred_element_type=f32)`` multiplies the float32 cotangent ``g``
+    with the saved bfloat16 operand and rounds each result to bfloat16
+    before it goes on as float32.  A GPU has no float32 x bfloat16 product,
+    so here ``g`` is rounded to bfloat16 for the two products (one rounding
+    of relative 2^-9 per element more than JAX, on the CPU and the card
+    alike); ``dW`` and ``dh`` are rounded to bfloat16 as in the reference,
+    and the bias gradient is the float32 column sum of the unrounded ``g``.
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, b, dtype, w_cast):
+        h_c = h.to(dtype)
+        w_c = w.to(dtype) if w_cast is None else w_cast
+        ctx.save_for_backward(h_c, w_c)
+        ctx.dtype = dtype
+        ctx.h_dtype = h.dtype
+        return reduced_product(h_c, w_c).add_(b)
+
+    @staticmethod
+    def backward(ctx, g):
+        h_c, w_c = ctx.saved_tensors
+        g_c = g.to(ctx.dtype)
+        dh = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dh = reduced_product(g_c, w_c.t()).to(ctx.dtype).to(ctx.h_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = reduced_product(h_c.t(), g_c).to(ctx.dtype).float()
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=0)
+        return dh, dw, db, None, None
+
+
+def reduced_linear(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   dtype: torch.dtype,
+                   w_cast: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer's ``z`` [M, n_out] (float32) from ``h`` [M, n_in], the
+    float32 master weight ``w`` [n_in, n_out] and bias ``b``, with the
+    product's operands in ``dtype``.  ``w_cast`` is ``w.to(dtype)`` made
+    beforehand, for callers whose weights are frozen; without it the cast
+    is made here, once per call, and kept for the backward pass."""
+    return _ReducedLinear.apply(h, w, b, dtype, w_cast)
 
 
 def init_params(seed: int, layersizes=DEFAULT_LAYERSIZES,
@@ -77,9 +150,26 @@ class FFN(nn.Module):
             nn.Parameter(torch.zeros(n_out, device=device))
             for _, n_out in pairs)
 
+    @torch.no_grad()
+    def cast_weights(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """The weight matrices as ``dtype`` copies, for ``forward``'s
+        ``cast_weights``: a caller with frozen weights (a decoder) makes
+        them once, where training casts once per step."""
+        return [w.to(dtype) for w in self.weights]
+
     def forward(self, x: torch.Tensor, dropout: tuple | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """x [M, n_in] -> [M, n_out].
+                generator: torch.Generator | None = None,
+                compute_dtype: torch.dtype = torch.float32,
+                act_dtype: torch.dtype | None = None,
+                cast_weights: list | None = None) -> torch.Tensor:
+        """x [M, n_in] -> [M, n_out], float32.
+
+        ``compute_dtype`` is the type of the products' operands
+        (``torch.float32``, the parity default, or ``torch.bfloat16`` with
+        float32 sums; ``cast_weights`` then optionally holds
+        ``self.cast_weights(compute_dtype)``).  ``act_dtype`` casts the
+        hidden activations after the nonlinearity, never the output layer,
+        with either ``compute_dtype``.
 
         ``dropout=(visible_omit, hid_omit)`` is the reference's input-side
         dropout (``BP_GPU.cu:344-356``): the input of layer 0 is zeroed
@@ -99,8 +189,17 @@ class FFN(nn.Module):
                 keep = torch.rand(h.shape, generator=generator,
                                   device=h.device) < 1.0 - p
                 h = torch.where(keep, h / (1.0 - p), 0.0)
-            z = torch.addmm(b, h, w)
+            if compute_dtype == torch.float32:
+                # .float() is the tensor itself unless act_dtype made it
+                # narrower.
+                z = torch.addmm(b, h.float(), w)
+            else:
+                z = reduced_linear(h, w, b, compute_dtype,
+                                   None if cast_weights is None
+                                   else cast_weights[i])
             h = act(z) if i < last else z
+            if act_dtype is not None and i < last:
+                h = h.to(act_dtype)
         return h
 
 

@@ -47,7 +47,8 @@ CV_BATCH = 4096
 class TrainConfig:
     """The reference's config keys (``Interface.cc:150-315``) plus the
     framework's knobs, as ``tpu_se.train.TrainConfig`` has them (without
-    its multi-host and bf16 fields)."""
+    its multi-host fields).  Checkpoints and ``.wts`` files are float32
+    whatever ``compute_dtype`` says."""
 
     fea_file: str = ""
     targ_file: str = ""
@@ -73,6 +74,7 @@ class TrainConfig:
     lr_decay: float = 0.9
     seed_increment: int = 345
     grad_scale: str = "parity"
+    compute_dtype: str = "float32"   # or "bfloat16"
     carry_velocity: bool = False
     # init_randem_{weight,bias}_{min,max} (Interface.cc:140-143): when set
     # (and no init_wts_file), plain uniform init from these ranges.
@@ -90,7 +92,8 @@ class TrainConfig:
             beta=self.shapefactor, ml=self.ml_flag, momentum=self.momentum,
             weightcost=self.weightcost, bunchsize=self.bunchsize,
             context=self.fea_context, targ_offset=self.targ_offset,
-            grad_scale=self.grad_scale, activation=self.activation,
+            grad_scale=self.grad_scale, compute_dtype=self.compute_dtype,
+            activation=self.activation,
             dropout=((self.visible_omit, self.hid_omit)
                      if self.dropout_flag else None),
         )

@@ -15,12 +15,19 @@ launches on the card:
   cotangent comes from ``output_grad_and_alpha`` -- on the card the GGD
   kernel -- which nothing differentiates through, just as JAX feeds it to
   ``vjp``; so the kernel needs no ``autograd.Function``.
+- With ``hyper.compute_dtype = torch.bfloat16`` the products of the forward
+  and backward pass take bfloat16 operands and sum in float32
+  (``models/ffn.py:reduced_linear``); the weights are cast once per bunch,
+  inside the layer that keeps the copies for its backward pass.  The
+  network's output, the GGD gradient, alpha, the velocity and the weights
+  stay float32.
 - Partial bunches are dropped by the caller (``starts[: n_bunches*M]``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -28,6 +35,7 @@ import torch
 from tpu_se_torch.losses import output_grad_and_alpha
 from tpu_se_torch.models import FFN
 from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
+from tpu_se_torch.utils.device import resolve_compute_dtype
 
 
 @dataclass(frozen=True)
@@ -36,7 +44,10 @@ class TrainHyper:
 
     ``grad_scale='parity'`` reproduces the reference's double 1/M (loss
     gradient / M, then the optimizer's grad/n again); ``'natural'``
-    applies the bunch mean once.
+    applies the bunch mean once.  ``compute_dtype`` (``torch.float32``,
+    ``torch.bfloat16`` or their names) is the type of the products'
+    operands; ``act_dtype`` optionally narrows the hidden activations.
+    Both are throughput knobs: parity keeps the defaults.
     """
     beta: float = 1.0
     ml: bool = True
@@ -46,12 +57,20 @@ class TrainHyper:
     context: int = 7
     targ_offset: int = 3
     grad_scale: str = "parity"   # "parity" | "natural"
+    compute_dtype: Any = torch.float32
     activation: str = "sigmoid"  # "sigmoid" | "relu" (the #ifdef RELU build)
     dropout: tuple | None = None  # (visible_omit, hid_omit) or None
+    act_dtype: Any = None        # reduced-precision hidden activations
 
     def __post_init__(self):
         if self.grad_scale not in ("parity", "natural"):
             raise ValueError(f"bad grad_scale {self.grad_scale!r}")
+        # Names become dtypes here (the dataclass is frozen).
+        object.__setattr__(self, "compute_dtype",
+                           resolve_compute_dtype(self.compute_dtype))
+        if self.act_dtype is not None:
+            object.__setattr__(self, "act_dtype",
+                               resolve_compute_dtype(self.act_dtype))
 
 
 @dataclass
@@ -104,7 +123,9 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
         for bunch in starts:
             x = gather_splice(noisy, bunch, hyper.context)
             targ = clean[bunch + hyper.targ_offset]
-            out = state.model(x, dropout=dropout, generator=generator)
+            out = state.model(x, dropout=dropout, generator=generator,
+                              compute_dtype=hyper.compute_dtype,
+                              act_dtype=hyper.act_dtype)
             dedx, alpha = output_grad_and_alpha(out.detach(), targ,
                                                 hyper.beta, hyper.ml)
             grads = torch.autograd.grad(out, params, grad_outputs=dedx)
@@ -118,9 +139,12 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
 
 @torch.no_grad()
 def cv_forward(model: FFN, noisy: torch.Tensor, starts: torch.Tensor,
-               context: int = 7) -> torch.Tensor:
-    """Forward a batch of CV windows: [N] starts -> [N, out_dim] outputs."""
-    return model(gather_splice(noisy, starts, context))
+               context: int = 7,
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Forward a batch of CV windows: [N] starts -> [N, out_dim] outputs.
+    As in the reference, CV takes ``compute_dtype`` but not ``act_dtype``."""
+    return model(gather_splice(noisy, starts, context),
+                 compute_dtype=compute_dtype)
 
 
 @torch.no_grad()
@@ -131,7 +155,8 @@ def cv_chunk_metrics(model: FFN, noisy: torch.Tensor, clean: torch.Tensor,
     (sum squared err, sum abs err, sum (|err|/alpha)^beta), the three
     reductions behind ``CrossValid``, ``CrossValiddB`` and ``CrossValid2``
     (``BP_GPU.cu:187-306``).  The batch is not padded, so no mask."""
-    out = cv_forward(model, noisy, starts, hyper.context)
+    out = cv_forward(model, noisy, starts, hyper.context,
+                     hyper.compute_dtype)
     err = out - clean[starts + hyper.targ_offset]
     abs_e = err.abs()
     return torch.stack([(err * err).sum(), abs_e.sum(),

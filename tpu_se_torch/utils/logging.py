@@ -10,8 +10,22 @@ package's apart from the times and the config fields the port leaves out.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
+
+
+def get_logger(name: str = "tpu_se_torch") -> logging.Logger:
+    """A stream logger at INFO with the package's line format; repeated
+    calls return the same logger without adding handlers."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        h = logging.StreamHandler()
+        h.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s %(levelname)s %(message)s"))
+        logger.addHandler(h)
+        logger.setLevel(logging.INFO)
+    return logger
 
 
 class EpochLogger:
