@@ -114,7 +114,29 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    samples/s at M = 128 and ms per bunch at M = 4096 beside float32's;
    ``wav_to_mfcc`` on the card against the CPU; one training bunch under
    ``profile_trace``, whose Chrome trace must hold CUDA kernels;
-11. prints the kernel table as JSON (each kernel's launches summed over
+11. data-parallel phase, at the training phase's full-width fixtures; the
+   ranks are child processes of ``python -m tpu_se_torch train`` (and of
+   ``python -m tpu_se_torch.bench.dp_epoch`` for the timings), each
+   cluster under its own time limit; a child's unexpected exit code, a
+   timeout or a failed comparison ends the smoke with the children's
+   output: the split GGD kernels (``ggd_colsum_cuda`` +
+   ``ggd_grad_from_sums_cuda``) against their plain versions for M in
+   {64, 128, 1024, 4096}, D = 257, beta in {1, 0.9, 2} (rtol 5e-6, exact
+   zeros, bitwise reruns), fed their own sums bit for bit the fused
+   kernel, two half-bunches' sums added against the whole bunch's alpha,
+   and their device times beside their byte bounds and an empty launch;
+   one rank over NCCL (``--coordinator ... --num-processes 1``), whose
+   ``mlp.2.wts`` must be byte-identical to the training phase's
+   single-process run, with two split launches and two all-reduces per ML
+   bunch counted; two ranks sharing the card over gloo
+   (``--cpu-collectives gloo``) at ``--lrate 0.001``: weight changes within
+   1e-3 of the one-process card run, a second run byte-identical, the
+   ranks' own end-of-epoch replica check, only rank 0's files on disk, and
+   (in ``dp_epoch``) the all-gathered resident span equal to the unsharded
+   one; the refusals (``--mesh-data 2`` on one card, NCCL with two ranks on
+   one card, ``--mesh-model 2``); ms per bunch for one rank fused, one rank
+   over NCCL and two ranks over gloo, with the bytes each collective moves;
+12. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -127,7 +149,9 @@ import io
 import json
 import math
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -161,6 +185,7 @@ from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
+from tpu_se_torch.parallel.mesh import free_port  # noqa: E402
 from tpu_se_torch.train import (  # noqa: E402
     TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
     train_chunk, train_one_epoch,
@@ -176,6 +201,12 @@ LPS_ATOL = 1e-5
 # powf against torch.pow (the CPU check of plain against JAX saw 6.4e-7).
 GGD_RTOL = 5e-6
 GGD_BETAS = (0.5, 0.9, 1.0, 2.0)
+# The data-parallel phase: the split kernels' rows (a rank's share of a
+# bunch at 2 ranks and at 1, and two larger bunches) and shape factors, and
+# the seconds a cluster of child ranks may take before it is killed.
+SPLIT_ROWS = (64, 128, 1024, 4096)
+SPLIT_BETAS = (1.0, 0.9, 2.0)
+RANKS_TIMEOUT_S = 300
 # The card's published peaks (NVIDIA H100 SXM at 700 W) that the kernels'
 # bounds are stated against: device memory, and fp64 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1607,6 +1638,387 @@ def bf16_phase(dev, root: str, fx: dict, train: dict, fp32_hops: dict
     return {"lps_launches": lps_launches, "ggd_launches": ggd_launches}
 
 
+def split_bound_ms(m: int, d: int) -> tuple[float, float]:
+    """The least the card could take for the two split launches on [m, d]
+    rows: ``ggd_colsum`` reads out and targ and writes the sums;
+    ``ggd_grad_from_sums`` reads out, targ and the sums and writes dedx and
+    alpha; both at the memory rate."""
+    return (4 * (2 * m * d + d) / HBM_BYTES_PER_S * 1e3,
+            4 * (3 * m * d + 2 * d) / HBM_BYTES_PER_S * 1e3)
+
+
+def split_kernel_phase(dev) -> dict:
+    """The split GGD kernels against their plain versions, the fused kernel
+    and each other; their device times.  -> the kernel table's numbers."""
+    rng = np.random.default_rng(SEED + 11)
+    lib, _ = load_library()
+    d = 257
+    max_abs = {"colsum": 0.0, "from_sums": 0.0}
+    for m in SPLIT_ROWS:
+        out_np, targ_np = ggd_inputs(rng, m, d)
+        out = torch.from_numpy(out_np).to(dev)
+        targ = torch.from_numpy(targ_np).to(dev)
+        errs = []
+        for beta in SPLIT_BETAS:
+            sums = ggd_kernel.ggd_colsum_cuda(out, targ, beta)
+            sums2 = ggd_kernel.ggd_colsum_cuda(out, targ, beta)
+            dedx, alpha = ggd_kernel.ggd_grad_from_sums_cuda(out, targ, sums,
+                                                             m, beta)
+            dedx2, alpha2 = ggd_kernel.ggd_grad_from_sums_cuda(
+                out, targ, sums, m, beta)
+            want_s = ggd_kernel.ggd_colsum_plain(out, targ, beta)
+            want_d, want_a = ggd_kernel.ggd_grad_from_sums_plain(
+                out, targ, sums, m, beta)
+            fused_d, fused_a = ggd_kernel.ggd_output_grad_cuda(out, targ,
+                                                               beta)
+            torch.cuda.synchronize()
+            rel = max(max_rel(sums, want_s), max_rel(dedx, want_d),
+                      max_rel(alpha, want_a))
+            zeros = (bool((dedx[2::5] == 0).all())
+                     and bool((dedx[:, d // 2] == 0).all())
+                     and alpha[d // 2].item() == 0.0
+                     and sums[d // 2].item() == 0.0)
+            same = (torch.equal(sums, sums2) and torch.equal(dedx, dedx2)
+                    and torch.equal(alpha, alpha2))
+            as_fused = (torch.equal(dedx, fused_d)
+                        and torch.equal(alpha, fused_a))
+            if not (rel <= GGD_RTOL and zeros and same and as_fused):
+                raise SystemExit(
+                    f"split GGD kernels disagree at M={m} beta={beta}: max "
+                    f"rel {rel:.3e}, exact zeros {zeros}, rerun bitwise "
+                    f"{same}, bitwise the fused kernel {as_fused}")
+            errs.append(rel)
+            max_abs["colsum"] = max(max_abs["colsum"],
+                                    (sums - want_s).abs().max().item())
+            max_abs["from_sums"] = max(max_abs["from_sums"],
+                                       (dedx - want_d).abs().max().item(),
+                                       (alpha - want_a).abs().max().item())
+            # Two ranks' halves: their sums added give the bunch's alpha.
+            half = m // 2
+            both = (ggd_kernel.ggd_colsum_cuda(out[:half], targ[:half], beta)
+                    + ggd_kernel.ggd_colsum_cuda(out[half:], targ[half:],
+                                                 beta))
+            halves = [ggd_kernel.ggd_grad_from_sums_cuda(
+                out[lo:lo + half], targ[lo:lo + half], both, m, beta)
+                for lo in (0, half)]
+            torch.cuda.synchronize()
+            rel2 = max(max_rel(halves[0][1], fused_a),
+                       max_rel(torch.cat([h[0] for h in halves]), fused_d))
+            if not (rel2 <= GGD_RTOL
+                    and torch.equal(halves[0][1], halves[1][1])):
+                raise SystemExit(
+                    f"two half-bunches disagree with the bunch at M={m} "
+                    f"beta={beta}: max rel {rel2:.3e}")
+            errs.append(rel2)
+        print(f"dp      M={m:5d} D={d}: split kernels, max rel |cuda-plain| "
+              f"and |two halves - whole| over beta {SPLIT_BETAS} = "
+              f"{', '.join(f'{e:.2e}' for e in errs)}; zeros exact, reruns "
+              f"bitwise equal, one rank bitwise equal to the fused kernel")
+
+    times = {}
+    for m in (64, 128):
+        out_np, targ_np = ggd_inputs(rng, m, d)
+        out = torch.from_numpy(out_np).to(dev)
+        targ = torch.from_numpy(targ_np).to(dev)
+        sums = ggd_kernel.ggd_colsum_cuda(out, targ, 1.0)
+
+        def colsum():
+            return ggd_kernel.ggd_colsum_cuda(out, targ, 1.0)
+
+        def from_sums():
+            return ggd_kernel.ggd_grad_from_sums_cuda(out, targ, sums, m, 1.0)
+
+        def colsum_plain():
+            return ggd_kernel.ggd_colsum_plain(out, targ, 1.0)
+
+        def from_sums_plain():
+            return ggd_kernel.ggd_grad_from_sums_plain(out, targ, sums, m,
+                                                       1.0)
+
+        def fused():
+            return ggd_kernel.ggd_output_grad_cuda(out, targ, 1.0)
+
+        def empty():
+            lib.ggd_launch_floor(m, d,
+                                 torch.cuda.current_stream().cuda_stream)
+
+        us = {name: device_us(fn) for name, fn in (
+            ("colsum", colsum), ("from_sums", from_sums),
+            ("colsum_plain", colsum_plain),
+            ("from_sums_plain", from_sums_plain), ("fused", fused),
+            ("empty", empty))}
+        bound = split_bound_ms(m, d)
+        times[m] = {
+            "colsum": {"ms": us["colsum"] / 1e3,
+                       "plain_ms": us["colsum_plain"] / 1e3,
+                       "bound_ms": bound[0], "bound_by": "bytes"},
+            "from_sums": {"ms": us["from_sums"] / 1e3,
+                          "plain_ms": us["from_sums_plain"] / 1e3,
+                          "bound_ms": bound[1], "bound_by": "bytes"}}
+        print(f"dp      M={m:5d} D={d} beta=1: device time ggd_colsum "
+              f"{us['colsum']:.2f} us (plain {us['colsum_plain']:.2f}, bound "
+              f"{bound[0] * 1e3:.2f} us, bytes), ggd_grad_from_sums "
+              f"{us['from_sums']:.2f} us (plain {us['from_sums_plain']:.2f}, "
+              f"bound {bound[1] * 1e3:.2f} us, bytes); the fused kernel "
+              f"{us['fused']:.2f} us, an empty kernel launched the same way "
+              f"{us['empty']:.2f} us")
+    return {"max_abs_err": max_abs, "times": times}
+
+
+def start_rank(argv: list, log_path: str) -> dict:
+    """Start ``python <argv>`` from the checkout, its output in a file."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "path": log_path, "argv": argv}
+
+
+def wait_ranks(ranks: list, label: str, want_ok: bool = True) -> list[str]:
+    """Wait for child ranks -> their outputs.  They share
+    ``RANKS_TIMEOUT_S``; on a timeout, or an exit code that is (``want_ok``)
+    not 0 or (otherwise) 0, every child is killed and the smoke ends with
+    all their output."""
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    fault = ""
+    for r in ranks:
+        try:
+            r["proc"].wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fault = f"{label}: no end after {RANKS_TIMEOUT_S} s"
+            break
+    for r in ranks:
+        if r["proc"].poll() is None:
+            r["proc"].kill()
+            r["proc"].wait()
+        r["log"].close()
+    outputs = []
+    for r in ranks:
+        with open(r["path"]) as f:
+            outputs.append(f.read())
+    codes = [r["proc"].returncode for r in ranks]
+    if not fault and any((code == 0) != want_ok for code in codes):
+        fault = (f"{label}: exit codes {codes}, wanted "
+                 f"{'0' if want_ok else 'a failure'} from each")
+    if fault:
+        for r, text in zip(ranks, outputs):
+            print(f"---- {' '.join(r['argv'][:6])} ...\n{text}")
+        raise SystemExit(fault)
+    return outputs
+
+
+def train_rank_argv(tfx: dict, init_wts: str, out_dir: str, *extra) -> list:
+    return ["-m", "tpu_se_torch", "train", "--fea-file", tfx["noisy"],
+            "--targ-file", tfx["clean"], "--norm-file", tfx["norm"],
+            "--init-wts", init_wts, "--out-dir", out_dir,
+            "--train-sents", tfx["train_sents"],
+            "--cv-sents", tfx["cv_sents"],
+            "--traincache", str(tfx["traincache"]),
+            "--epochs", str(EPOCHS), "--device", "cuda", *extra]
+
+
+def coordinator_flags(port: int, n_ranks: int, rank: int, gloo: bool) -> list:
+    return ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+            str(n_ranks), "--process-id", str(rank),
+            *(["--cpu-collectives", "gloo"] if gloo else [])]
+
+
+MESH_LINE = re.compile(
+    r"data mesh: rank (\d+) of (\d+) \((\w+)\): ggd_colsum (\d+) launches, "
+    r"ggd_grad_from_sums (\d+) launches, all_reduce (\d+) calls (\d+) bytes, "
+    r"replicas equal at (\d+) epoch ends")
+
+
+def mesh_summary(output: str, label: str) -> dict:
+    """The numbers of a rank's closing ``data mesh:`` line."""
+    found = MESH_LINE.search(output)
+    if not found:
+        raise SystemExit(f"{label}: no closing 'data mesh:' line in\n{output}")
+    keys = ("rank", "ranks", "backend", "colsum", "from_sums", "calls",
+            "bytes", "replica_checks")
+    return {k: v if k == "backend" else int(v)
+            for k, v in zip(keys, found.groups())}
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def dp_train_runs(root: str, train: dict) -> dict:
+    """One rank over NCCL, two ranks over gloo (twice), and the refusals,
+    all as child processes, started together.  -> the split kernels'
+    launches on these paths."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    bunches = ml_bunches(tfx) * EPOCHS
+    n_params = sum(layer["w"].size + layer["b"].size
+                   for layer in read_wts(init_wts))
+    lr = ("--lrate", AGREE_LRATE)
+
+    def log(name):
+        return os.path.join(root, f"{name}.log")
+
+    nccl1 = [start_rank(train_rank_argv(
+        tfx, init_wts, os.path.join(root, "nccl1"),
+        *coordinator_flags(free_port(), 1, 0, False)), log("nccl1"))]
+    gloo = {}
+    for name in ("gloo2", "gloo2_again"):
+        port = free_port()
+        gloo[name] = [start_rank(train_rank_argv(
+            tfx, init_wts, os.path.join(root, name), *lr,
+            *coordinator_flags(port, 2, k, True)), log(f"{name}.{k}"))
+            for k in (0, 1)]
+    port = free_port()
+    refusals = {
+        "--mesh-data 2 on one card": (
+            [start_rank(train_rank_argv(
+                tfx, init_wts, os.path.join(root, "refused_mesh"),
+                "--mesh-data", "2"), log("refused_mesh"))],
+            "mesh 2x1 needs 2 devices, have 1"),
+        "NCCL with two ranks on one card": (
+            [start_rank(train_rank_argv(
+                tfx, init_wts, os.path.join(root, "refused_nccl"),
+                *coordinator_flags(port, 2, k, False)),
+                log(f"refused_nccl.{k}")) for k in (0, 1)],
+            "NCCL needs one card per rank"),
+        "--mesh-model 2": (
+            [start_rank(train_rank_argv(
+                tfx, init_wts, os.path.join(root, "refused_model"),
+                "--mesh-model", "2"), log("refused_model"))],
+            "--mesh-model > 1, tensor-parallel hidden layers) is not ported"),
+    }
+
+    # 1 rank over NCCL: the data-parallel step with one device's bits.
+    out = wait_ranks(nccl1, "1 rank over NCCL")[0]
+    got = mesh_summary(out, "1 rank over NCCL")
+    identical = same_bytes(os.path.join(root, "nccl1", "mlp.2.wts"),
+                           os.path.join(root, "cuda", "mlp.2.wts"))
+    print(f"dp      1 rank over NCCL: ggd_colsum {got['colsum']} and "
+          f"ggd_grad_from_sums {got['from_sums']} launches for {bunches} ML "
+          f"bunches, all_reduce {got['calls']} calls {got['bytes']} bytes, "
+          f"replicas checked at {got['replica_checks']} epoch ends; mlp.2.wts "
+          f"byte-identical to the single-process run = {identical}")
+    want_bytes = bunches * 4 * (257 + n_params)
+    if not (got["backend"] == "nccl" and got["ranks"] == 1
+            and got["colsum"] == got["from_sums"] == bunches
+            and got["calls"] == 2 * bunches and got["bytes"] == want_bytes
+            and got["replica_checks"] == EPOCHS and identical):
+        raise SystemExit(f"1 rank over NCCL: {got}, wanted {bunches} "
+                         f"launches of each, {2 * bunches} collectives of "
+                         f"{want_bytes} bytes and the single-process bytes")
+    launches = {"colsum": got["colsum"], "from_sums": got["from_sums"]}
+
+    # 2 ranks sharing the card over gloo, lrate 0.001, twice.
+    for name, ranks in gloo.items():
+        outs = wait_ranks(ranks, f"2 ranks over gloo ({name})")
+        for k, text in enumerate(outs):
+            got = mesh_summary(text, f"{name} rank {k}")
+            if not (got["backend"] == "gloo" and got["ranks"] == 2
+                    and got["rank"] == k
+                    and got["colsum"] == got["from_sums"] == bunches
+                    and got["calls"] == 2 * bunches
+                    and got["replica_checks"] == EPOCHS):
+                raise SystemExit(f"{name} rank {k}: {got}")
+            launches["colsum"] += got["colsum"]
+            launches["from_sums"] += got["from_sums"]
+        files = sorted(os.listdir(os.path.join(root, name)))
+        if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
+                     "mlp.2.wts"]:
+            raise SystemExit(f"{name}: files on disk {files}: not rank 0's "
+                             "alone")
+    again = same_bytes(os.path.join(root, "gloo2", "mlp.2.wts"),
+                       os.path.join(root, "gloo2_again", "mlp.2.wts"))
+    w0 = read_wts(init_wts)
+    w_one = read_wts(os.path.join(root, "cuda_lr", "mlp.2.wts"))
+    w_two = read_wts(os.path.join(root, "gloo2", "mlp.2.wts"))
+    worst = 0.0
+    for i, (a, one, two) in enumerate(zip(w0, w_one, w_two)):
+        for k in ("w", "b"):
+            d_one = one[k].astype(np.float64) - a[k]
+            d_two = two[k].astype(np.float64) - a[k]
+            rel = np.linalg.norm(d_two - d_one) / np.linalg.norm(d_one)
+            print(f"dp      2 ranks over gloo, lrate {AGREE_LRATE} layer {i} "
+                  f"{k}: |dW_2 - dW_1| / |dW_1| = {rel:.3e}")
+            worst = max(worst, rel)
+    print(f"dp      2 ranks over gloo: every rank's replica check passed at "
+          f"{EPOCHS} epoch ends, only rank 0's files on disk, second run "
+          f"byte-identical = {again}, weight changes within {worst:.3e} of "
+          f"the one-process card run")
+    if not (again and worst <= TRAIN_DW_RTOL):
+        raise SystemExit(f"2 ranks over gloo: rerun identical {again}, "
+                         f"weight changes {worst:.3e} from one process")
+
+    for label, (ranks, message) in refusals.items():
+        outs = wait_ranks(ranks, label, want_ok=False)
+        if not all(message in text for text in outs):
+            for text in outs:
+                print(text)
+            raise SystemExit(f"{label}: refused without {message!r}")
+        print(f"dp      refused, {label}: '{message}'")
+    return launches
+
+
+def dp_epoch_times(root: str, train: dict) -> None:
+    """ms per bunch for one rank fused, one rank over NCCL (split) and two
+    ranks over gloo, one cluster at a time, through
+    ``python -m tpu_se_torch.bench.dp_epoch``; and the gathered span.  The
+    one-rank forms run in turns (fused, NCCL, ..., NCCL, fused): the host's
+    pace drifts within a call by more than they differ."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    base = ["-m", "tpu_se_torch.bench.dp_epoch", "--fea-file", tfx["noisy"],
+            "--targ-file", tfx["clean"], "--norm-file", tfx["norm"],
+            "--init-wts", init_wts, "--train-sents", tfx["train_sents"],
+            "--traincache", str(tfx["traincache"]), "--device", "cuda"]
+    fused = ("1 rank, fused kernel, no group", 0, False)
+    nccl = ("1 rank over NCCL, split kernels", 1, False)
+    for label, n_ranks, gloo in (fused, nccl,
+                                 ("2 ranks over gloo, split kernels", 2,
+                                  True), nccl, fused):
+        port = free_port()
+        ranks = [start_rank(
+            base + (coordinator_flags(port, n_ranks, k, gloo)
+                    if n_ranks else []),
+            os.path.join(root, f"dp_epoch.{n_ranks}.{k}.log"))
+            for k in range(max(1, n_ranks))]
+        for text in wait_ranks(ranks, f"dp_epoch, {label}"):
+            r = json.loads(text.strip().splitlines()[-1])
+            per_call = (r["all_reduce_bytes"] // r["all_reduce_calls"] * 2
+                        if r["all_reduce_calls"] else 0)
+            print(f"dp      {label}, rank {r['rank']}: {r['ms_per_bunch']:.3f}"
+                  f" ms per bunch over {r['bunches']} bunches of "
+                  f"{r['rows_per_rank']} rows per rank; launches fused "
+                  f"{r['ggd_output_grad_launches']}, ggd_colsum "
+                  f"{r['ggd_colsum_launches']}, ggd_grad_from_sums "
+                  f"{r['ggd_grad_from_sums_launches']}; all_reduce "
+                  f"{r['all_reduce_calls']} calls, {r['all_reduce_bytes']} "
+                  f"bytes ({per_call} per bunch: 1028 of column sums, the "
+                  f"rest gradients); gathered span equal to the unsharded "
+                  f"one = {r['span_equal']}")
+            if not r["span_equal"]:
+                raise SystemExit(f"dp_epoch, {label}: the gathered span "
+                                 "differs from the unsharded read")
+            split = r["bunches"] if n_ranks else 0
+            if (r["ggd_colsum_launches"], r["ggd_grad_from_sums_launches"],
+                    r["ggd_output_grad_launches"]) != (
+                        split, split, r["bunches"] - split):
+                raise SystemExit(f"dp_epoch, {label}: launches {r}")
+
+
+def dp_phase(dev, root: str, train: dict) -> dict:
+    """-> the split kernels' table numbers and launches."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    split = split_kernel_phase(dev)
+    # The training phase's outputs that the ranks are held to.
+    for name in ("cuda", "cuda_lr"):
+        os.symlink(os.path.join(os.path.dirname(root), name),
+                   os.path.join(root, name))
+    split["launches"] = dp_train_runs(root, train)
+    dp_epoch_times(root, train)
+    print(f"dp      data-parallel phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return split
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -1640,13 +2052,16 @@ def main() -> int:
         stream_launches, fp32_hops = stream_phase(root, fx)
         bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
                           fp32_hops)
+        dp = dp_phase(dev, os.path.join(root, "dp"), train)
 
     # Launches: over the decode, streaming (graph replays included),
     # pipeline and bfloat16 paths; over the training, pipeline and bfloat16
     # paths.  Device time
     # (CUDA-graph replay) at the main path's shapes: the batched decode's
-    # rows, the parity bunch.  Neither kernel's function is one PyTorch
-    # call, so there is no library time.
+    # rows, the parity bunch.  The split entry points' launches are the
+    # child ranks' own counts (one rank over NCCL, two ranks over gloo
+    # twice), their times those of a bunch's 128 rows on one rank.  No
+    # kernel's function is one PyTorch call, so there is no library time.
     print(json.dumps({"kernels": [{
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
@@ -1661,7 +2076,19 @@ def main() -> int:
         "launches": (train["launches"] + pipe["ggd_launches"]
                      + bf16["ggd_launches"]),
         "max_abs_err": ggd["max_abs_err"],
-        **ggd["times"][BUNCH], "library_ms": None}]}))
+        **ggd["times"][BUNCH], "library_ms": None}, {
+        "name": "ggd_colsum", "route": "cuda",
+        "source": "tpu_se_torch/csrc/ggd_kernel.cu",
+        "replaces": "tpu_se/ops/ggd_kernel.py:50",
+        "launches": dp["launches"]["colsum"],
+        "max_abs_err": dp["max_abs_err"]["colsum"],
+        **dp["times"][BUNCH]["colsum"], "library_ms": None}, {
+        "name": "ggd_grad_from_sums", "route": "cuda",
+        "source": "tpu_se_torch/csrc/ggd_kernel.cu",
+        "replaces": "tpu_se/ops/ggd_kernel.py:50",
+        "launches": dp["launches"]["from_sums"],
+        "max_abs_err": dp["max_abs_err"]["from_sums"],
+        **dp["times"][BUNCH]["from_sums"], "library_ms": None}]}))
     print(f"card    {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

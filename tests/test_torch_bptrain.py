@@ -22,8 +22,9 @@
   round to neighbouring bfloat16 values; ``tests/test_torch_train.py``),
   the CV log values within rtol 1e-4.
 - Settings the port does not run stop it: ``compute_dtype=float16``,
-  ``mesh_data``/``mesh_model`` > 1, a bad ``device`` or
-  ``device_resident``, and ``device=cuda`` without a card.
+  ``mesh_model`` > 1, a ``mesh_data`` that does not divide the bunch, a bad
+  ``device`` or ``device_resident``, and ``device=cuda`` without a card
+  (``mesh_data=2`` runs: ``tests/test_torch_distributed.py``).
 
 Fixtures are written with the ``tpu_se.io`` writers inside the tests.
 """
@@ -297,7 +298,7 @@ def test_random_init_path_matches_tpu_se(pair, tmp_path):
 @pytest.mark.parametrize("extra,error,match", [
     (["compute_dtype=float16"], SystemExit,
      "compute_dtype=float16 is not float32 or bfloat16"),
-    (["mesh_data=2"], SystemExit, "mesh_data=2"),
+    (["mesh_data=3"], SystemExit, "mesh_data=3"),
     (["mesh_model=2"], SystemExit, "mesh_model=2"),
     (["device_resident=sometimes"], SystemExit, "device_resident"),
     (["outwts_file="], SystemExit, "outwts_file= is required"),

@@ -9,13 +9,19 @@ e == 0 and the all-zero column must be exactly 0.  The beta-norm gradient
 is held to rtol 1e-6, ``ref_gamma`` and ``ggd_loglik`` to 1e-12 where the
 float32 sums are exact.
 
-The CUDA kernel runs only on a card: ``test_ggd_cuda_matches_plain`` and
-``test_ggd_plan_matches_the_library`` are marked ``cuda`` and skip without
-one.  What the CPU can hold of the kernel is held here: ``_kernel_model``
+The split form for data-parallel training (``ggd_colsum`` +
+``ggd_grad_from_sums``): the plain pair at one rank is the fused plain
+result bit for bit, and over P in {2, 4, 8} row shards within rtol 5e-6 of
+it and of ``ggd_output_grad_reference`` on the whole bunch.
+
+The CUDA kernel runs only on a card: ``test_ggd_cuda_matches_plain``,
+``test_ggd_plan_matches_the_library`` and the two ``test_ggd_split_cuda_*``
+are marked ``cuda`` and skip without one.  What the CPU can hold of the kernel is held here: ``_kernel_model``
 repeats its float32 summation order in numpy (each thread's rows in order,
 the block's tree over its row threads, the cluster's ranks in order) from
-the launcher's plan, ``plan`` mirrors the launcher's rule, and the
-beta == 1 shortcut is compared with the general formula bit for bit.  On a
+the launcher's plan (``_colsum_model`` and ``_from_sums_model`` are its two
+halves, the split entry points), ``plan`` mirrors the launcher's rule, and
+the beta == 1 shortcut is compared with the general formula bit for bit.  On a
 card (no JAX there) run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_ggd.py
@@ -176,12 +182,12 @@ def _f32_pow(x, exponent):
     return np.power(x, np.float32(exponent), dtype=np.float32)
 
 
-def _kernel_model(out, targ, beta, shortcut=True):
-    """csrc/ggd_kernel.cu in numpy float32, sum order and all: thread
-    (ty, column) adds its rows ty, ty + row_threads, ... of the block in
-    order; the block adds its row threads in a halving tree; the ranks are
-    added in order.  ``shortcut`` takes the beta == 1 path where it
-    applies."""
+def _colsum_model(out, targ, beta, shortcut=True):
+    """``ggd_colsum`` of csrc/ggd_kernel.cu in numpy float32, sum order and
+    all (the fused kernel's first three steps): thread (ty, column) adds
+    its rows ty, ty + row_threads, ... of the block in order; the block
+    adds its row threads in a halving tree; the ranks are added in order.
+    ``shortcut`` takes the beta == 1 path where it applies."""
     m, d = out.shape
     plan = ggd_kernel.plan(m, d)
     row_threads = plan.threads // plan.cols
@@ -208,7 +214,17 @@ def _kernel_model(out, targ, beta, shortcut=True):
             sums[:half] = sums[:half] + sums[half:2 * half]
             half //= 2
         total = total + sums[0]
-    m32 = np.float32(m)
+    return total
+
+
+def _from_sums_model(out, targ, total, m_global, beta, shortcut=True):
+    """``ggd_grad_from_sums`` in numpy float32 (the fused kernel's alpha
+    arithmetic and its fourth step): alpha and the scale from the column
+    sums over ``m_global`` rows, then the gradient of these rows."""
+    one = shortcut and np.float32(beta) == np.float32(1.0)
+    e = out - targ
+    abs_e = np.abs(e)
+    m32 = np.float32(m_global)
     mean_term = np.float32(beta) * (total / m32)
     alpha = mean_term if one else _f32_pow(mean_term, 1.0 / beta)
     safe = np.where(alpha == 0, np.float32(1), alpha)
@@ -223,6 +239,14 @@ def _kernel_model(out, targ, beta, shortcut=True):
     dedx = np.where(e == 0, np.float32(0), grad)
     assert dedx.dtype == alpha.dtype == np.float32
     return dedx, alpha
+
+
+def _kernel_model(out, targ, beta, shortcut=True):
+    """The fused kernel in numpy float32: its column sums, then alpha and
+    the gradient from them over its own M rows.  The split entry points
+    are these two halves, so at one rank they give the fused bits."""
+    total = _colsum_model(out, targ, beta, shortcut)
+    return _from_sums_model(out, targ, total, out.shape[0], beta, shortcut)
 
 
 # One M on either side of each plan switch, and the sizes in use.
@@ -325,6 +349,120 @@ def test_ggd_cuda_raises_on_cpu_without_launch():
     assert ggd_kernel.launches == before
 
 
+SPLIT_BETAS = [1.0, 0.9, 2.0]
+
+
+def _split_plain(out, targ, beta, n_shards):
+    """The split plain functions over ``n_shards`` contiguous row shards,
+    the shards' sums added in rank order: what P ranks compute."""
+    o, t = torch.from_numpy(out), torch.from_numpy(targ)
+    m = out.shape[0]
+    per = m // n_shards
+    sums = None
+    for k in range(n_shards):
+        part = ggd_kernel.ggd_colsum_plain(o[k * per:(k + 1) * per],
+                                           t[k * per:(k + 1) * per], beta)
+        sums = part if sums is None else sums + part
+    pieces = [ggd_kernel.ggd_grad_from_sums_plain(
+        o[k * per:(k + 1) * per], t[k * per:(k + 1) * per], sums, m, beta)
+        for k in range(n_shards)]
+    for _, alpha in pieces[1:]:
+        assert torch.equal(alpha, pieces[0][1])     # every rank's alpha
+    return (torch.cat([d for d, _ in pieces]).numpy(),
+            pieces[0][1].numpy())
+
+
+@pytest.mark.parametrize("d", [257, 5])
+@pytest.mark.parametrize("m", [7, 128, 1000])
+@pytest.mark.parametrize("beta", SPLIT_BETAS)
+def test_split_plain_at_one_rank_is_bitwise_the_fused_plain(beta, m, d):
+    out, targ = _inputs(m, d, seed=5 * m + d)
+    dedx, alpha = _split_plain(out, targ, beta, 1)
+    want_d, want_a = _plain(out, targ, beta)
+    np.testing.assert_array_equal(dedx.view(np.uint32),
+                                  want_d.view(np.uint32))
+    np.testing.assert_array_equal(alpha.view(np.uint32),
+                                  want_a.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("m", [128, 1024])
+@pytest.mark.parametrize("beta", SPLIT_BETAS)
+def test_split_plain_over_shards_matches_plain_and_reference(beta, m,
+                                                             n_shards):
+    # The shards' partial sums are added in another order than one sum over
+    # M rows: a few float32 ulps, the kernel's own bar (rtol 5e-6).
+    import jax.numpy as jnp
+
+    from tpu_se.ops import ggd_output_grad_reference
+
+    out, targ = _inputs(m, 257, seed=m + n_shards)
+    dedx, alpha = _split_plain(out, targ, beta, n_shards)
+    plain_d, plain_a = _plain(out, targ, beta)
+    ref_d, ref_a = ggd_output_grad_reference(jnp.asarray(out),
+                                             jnp.asarray(targ), beta)
+    for want_d, want_a in ((plain_d, plain_a),
+                           (np.asarray(ref_d), np.asarray(ref_a))):
+        np.testing.assert_allclose(dedx, want_d, rtol=GGD_RTOL, atol=0)
+        np.testing.assert_allclose(alpha, want_a, rtol=GGD_RTOL, atol=0)
+    _assert_zeros(dedx, alpha, 257)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("beta", SPLIT_BETAS)
+def test_split_kernel_summation_order_matches_plain(beta, n_shards):
+    """The numpy model of ``ggd_colsum`` on each rank's rows (its plan is
+    that of M / P rows), the ranks' sums added in rank order as the
+    all-reduce of two ranks adds them, then ``ggd_grad_from_sums``: within
+    rtol 5e-6 of the plain whole-bunch result, and at one rank the fused
+    model's bits."""
+    m, d = 128, 257
+    out, targ = _inputs(m, d, seed=17 + n_shards)
+    per = m // n_shards
+    total = np.zeros(d, np.float32)
+    for k in range(n_shards):
+        total = total + _colsum_model(out[k * per:(k + 1) * per],
+                                      targ[k * per:(k + 1) * per], beta)
+    pieces = [_from_sums_model(out[k * per:(k + 1) * per],
+                               targ[k * per:(k + 1) * per], total, m, beta)
+              for k in range(n_shards)]
+    dedx = np.concatenate([p[0] for p in pieces])
+    alpha = pieces[0][1]
+    plain_d, plain_a = _plain(out, targ, beta)
+    np.testing.assert_allclose(dedx, plain_d, rtol=GGD_RTOL, atol=0)
+    np.testing.assert_allclose(alpha, plain_a, rtol=GGD_RTOL, atol=0)
+    _assert_zeros(dedx, alpha, d)
+    if n_shards == 1:
+        fused_d, fused_a = _kernel_model(out, targ, beta)
+        np.testing.assert_array_equal(dedx.view(np.uint32),
+                                      fused_d.view(np.uint32))
+        np.testing.assert_array_equal(alpha.view(np.uint32),
+                                      fused_a.view(np.uint32))
+
+
+def test_split_wrappers_raise_on_cpu_without_launch():
+    out, targ = torch.ones(8, 5), torch.zeros(8, 5)
+    with pytest.raises(ValueError, match="ggd_colsum_cuda.*CUDA tensor"):
+        ggd_kernel.ggd_colsum_cuda(out, targ, 1.0)
+    with pytest.raises(ValueError,
+                       match="ggd_grad_from_sums_cuda.*CUDA tensor"):
+        ggd_kernel.ggd_grad_from_sums_cuda(out, targ, torch.ones(5), 8, 1.0)
+    assert ggd_kernel.colsum_launches == 0
+    assert ggd_kernel.grad_from_sums_launches == 0
+
+
+@pytest.mark.parametrize("sums,m_global,match", [
+    (torch.ones(5, dtype=torch.float64), 8, "sums must be float32"),
+    (torch.ones(4), 8, "contiguous \\[5\\] vector"),
+    (torch.ones(5, 2)[:, 0], 8, "contiguous \\[5\\] vector"),
+    (torch.ones(5), 7, "m_global 7 is not between"),
+    (torch.ones(5), 2**31, "m_global"),
+], ids=["f64", "short", "strided", "fewer-rows-than-mine", "past-int32"])
+def test_check_sums_arg_rejects(sums, m_global, match):
+    with pytest.raises(ValueError, match=match):
+        ggd_kernel.check_sums_arg(sums, torch.zeros(8, 5), m_global)
+
+
 # Sizes for the card: those in use and both sides of each plan switch.
 CUDA_MS = sorted({1, 7, 128, 1000, 4096, 16384,
                   *(m for last in ggd_kernel.PLAN_SWITCH_ROWS
@@ -381,3 +519,59 @@ def test_ggd_plan_matches_the_library():
         for d in (1, 5, 16, 17, 129, 257, 1000):
             lib.ggd_plan(m, d, got)
             assert tuple(got) == tuple(ggd_kernel.plan(m, d)), (m, d)
+
+
+@pytest.mark.cuda
+def test_ggd_split_cuda_matches_plain_and_the_fused_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    for m in (64, 128, 1024, 4096):
+        out_np, targ_np = _inputs(m, 257, seed=m * 7)
+        out = torch.from_numpy(out_np).cuda()
+        targ = torch.from_numpy(targ_np).cuda()
+        for beta in SPLIT_BETAS:
+            before = (ggd_kernel.colsum_launches,
+                      ggd_kernel.grad_from_sums_launches)
+            sums = ggd_kernel.ggd_colsum_cuda(out, targ, beta)
+            dedx, alpha = ggd_kernel.ggd_grad_from_sums_cuda(out, targ, sums,
+                                                             m, beta)
+            torch.cuda.synchronize()
+            assert (ggd_kernel.colsum_launches,
+                    ggd_kernel.grad_from_sums_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+            want_s = ggd_kernel.ggd_colsum_plain(out, targ, beta)
+            want_d, want_a = ggd_kernel.ggd_grad_from_sums_plain(
+                out, targ, want_s, m, beta)
+            torch.testing.assert_close(sums, want_s, rtol=GGD_RTOL, atol=0)
+            torch.testing.assert_close(dedx, want_d, rtol=GGD_RTOL, atol=0)
+            torch.testing.assert_close(alpha, want_a, rtol=GGD_RTOL, atol=0)
+            _assert_zeros(dedx.cpu().numpy(), alpha.cpu().numpy(), 257)
+            # Fed its own sums, the pair is the fused kernel bit for bit.
+            fused_d, fused_a = ggd_kernel.ggd_output_grad_cuda(out, targ,
+                                                               beta)
+            assert torch.equal(dedx, fused_d) and torch.equal(alpha, fused_a)
+        # The numpy model has the kernel's sum order: the sums to the bit.
+        sums = ggd_kernel.ggd_colsum_cuda(out, targ, 1.0)
+        np.testing.assert_array_equal(sums.cpu().numpy(),
+                                      _colsum_model(out_np, targ_np, 1.0))
+
+
+@pytest.mark.cuda
+def test_ggd_split_cuda_two_half_bunches_give_the_bunch_alpha():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    out_np, targ_np = _inputs(128, 257, seed=99)
+    out = torch.from_numpy(out_np).cuda()
+    targ = torch.from_numpy(targ_np).cuda()
+    for beta in SPLIT_BETAS:
+        sums = (ggd_kernel.ggd_colsum_cuda(out[:64], targ[:64], beta)
+                + ggd_kernel.ggd_colsum_cuda(out[64:], targ[64:], beta))
+        halves = [ggd_kernel.ggd_grad_from_sums_cuda(
+            out[lo:lo + 64], targ[lo:lo + 64], sums, 128, beta)
+            for lo in (0, 64)]
+        want_d, want_a = ggd_kernel.ggd_output_grad_cuda(out, targ, beta)
+        assert torch.equal(halves[0][1], halves[1][1])
+        torch.testing.assert_close(halves[0][1], want_a, rtol=GGD_RTOL,
+                                   atol=0)
+        torch.testing.assert_close(torch.cat([h[0] for h in halves]), want_d,
+                                   rtol=GGD_RTOL, atol=0)

@@ -30,6 +30,9 @@ def test_port_imports_no_jax():
             "import tpu_se_torch.train, tpu_se_torch.data\n"
             "import tpu_se_torch.losses, tpu_se_torch.utils.logging\n"
             "import tpu_se_torch.utils.profiling, tpu_se_torch.utils.device\n"
+            "import tpu_se_torch.parallel, tpu_se_torch.parallel.mesh\n"
+            "import tpu_se_torch.parallel.distributed, tpu_se_torch.__main__\n"
+            "import tpu_se_torch.data.pipeline\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'tpu_se'))\n"
@@ -46,6 +49,26 @@ def test_infer_exports_every_name_of_the_jax_package():
     assert set(tpu_se.infer.__all__) <= set(tpu_se_torch.infer.__all__)
     for name in tpu_se_torch.infer.__all__:
         assert callable(getattr(tpu_se_torch.infer, name)), name
+
+
+def test_parallel_exports_the_ported_names():
+    import tpu_se.parallel
+    import tpu_se_torch.parallel as port
+
+    # Everything of the reference but the sharding specs of the model axis
+    # and of single-process device placement, which the port's process
+    # model has no use for (one process per device; --mesh-model queued).
+    left_out = {"batch_sharding", "replicated_sharding", "param_shardings"}
+    assert set(tpu_se.parallel.__all__) - left_out <= set(port.__all__)
+    assert {"Mesh", "shutdown_distributed", "allgather_host_rows",
+            "allgather_rows", "sync_processes",
+            "launch_local_ranks"} <= set(port.__all__)
+    assert len(set(port.__all__)) == len(port.__all__)
+    for name in port.__all__:
+        assert callable(getattr(port, name)), name
+    import tpu_se_torch.data
+
+    assert "shard_for_host" in tpu_se_torch.data.__all__
 
 
 @pytest.mark.parametrize("package", ["dsp", "utils"])

@@ -1,0 +1,212 @@
+"""Test worker: one rank of a ``torch.distributed`` gloo cluster on the CPU.
+
+Launched by ``tests/test_torch_parallel.py`` and
+``tests/test_torch_distributed.py`` as
+
+    python tests/torch_mp_worker.py <mode> <rank> <n_ranks> <port> <dir> ...
+
+once per rank; every rank joins ``tcp://127.0.0.1:<port>`` through
+``tpu_se_torch.parallel.initialize_distributed`` and leaves its result in
+``<dir>``.  It imports no JAX.  ``run_ranks`` is the launcher those tests
+use: it starts the ranks, bounds their time and kills what is left.
+Modes:
+
+- ``allgather``: ``allgather_host_rows`` on an uneven row shard of a
+  seeded array; every rank saves what it got (``gathered.<rank>.npy``).
+- ``span <fea> <targ> <norm>``: ``load_span_normalized(process_shard=)``
+  and ``load_device_frames(mesh=)`` of sentences 0-7; every rank saves
+  both (``span.<rank>.npz``).
+- ``chunk <ml> <beta>``: one ``train_chunk(mesh=)`` over the problem in
+  ``<dir>/problem.npz`` (written by the test, so JAX and every rank see the
+  same numbers); rank 0 saves weights, velocity and alpha
+  (``chunk.npz``).
+- ``replicas``: rank 1 moves one weight by one ulp, then every rank calls
+  ``Mesh.check_replicas``; exit code 5 when it raised as it must.
+- ``train <args...>``: the ``tpu_se_torch train`` CLI as this rank, hard
+  killed (``os._exit(7)``: no cleanup, as SIGKILL) after
+  ``TPU_SE_TORCH_CRASH_AFTER_CHUNKS`` ``train_chunk`` dispatches when that
+  is set: the twin of ``tests/mp_crash_worker.py``.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from tpu_se_torch.data import PfilePairDataset, shard_for_host  # noqa: E402
+from tpu_se_torch.models import params_from_numpy  # noqa: E402
+from tpu_se_torch.parallel import (  # noqa: E402
+    allgather_host_rows, initialize_distributed, make_mesh,
+    shard_train_args, shutdown_distributed,
+)
+from tpu_se_torch.train import (  # noqa: E402
+    TrainHyper, load_device_frames, make_train_state, param_layers,
+    train_chunk,
+)
+
+GATHER_ROWS = 11          # not a multiple of 2 or 3: uneven shards
+TIMEOUT_S = 60.0          # a dead peer ends the rank
+
+
+def run_ranks(argv_for_rank, n_ranks: int, timeout: float = 120.0,
+              env: dict | None = None, expect_failure: bool = False):
+    """Start ``python <argv_for_rank(k)>`` for k < n_ranks and wait for all
+    of them -> (exit codes, outputs).  The cluster gets ``timeout`` seconds
+    in all; when it runs out, or (unless ``expect_failure``) when one rank
+    has failed and the others have had 10 s to follow, every rank still
+    alive is killed and ``RuntimeError`` is raised with the outputs.  No
+    child survives the call."""
+    full_env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    full_env.update(env or {})
+    procs = [subprocess.Popen(
+        [sys.executable, *argv_for_rank(k)], env=full_env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(n_ranks)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed and not expect_failure:
+                deadline = min(deadline, time.monotonic() + 10.0)
+                expect_failure = True        # shorten the deadline once
+            if time.monotonic() > deadline:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                logs = [p.communicate()[0] for p in procs]
+                raise RuntimeError(
+                    f"ranks did not end in time (exit codes "
+                    f"{[p.returncode for p in procs]}):\n"
+                    + "\n----\n".join(logs))
+            time.sleep(0.05)
+        return ([p.returncode for p in procs],
+                [p.communicate()[0] for p in procs])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def gather_problem() -> np.ndarray:
+    return np.random.default_rng(5).standard_normal(
+        (GATHER_ROWS, 3)).astype(np.float32)
+
+
+def run_allgather(rank, n_ranks, out_dir):
+    full = gather_problem()
+    mine = full[shard_for_host(GATHER_ROWS, rank, n_ranks)]
+    got = allgather_host_rows(mine, GATHER_ROWS, rank, n_ranks)
+    np.save(os.path.join(out_dir, f"gathered.{rank}.npy"), got)
+
+
+def run_span(rank, n_ranks, out_dir, fea, targ, norm):
+    ds = PfilePairDataset(fea, targ, norm, (0, 7), 512)
+    noisy, clean = ds.load_span_normalized(process_shard=(rank, n_ranks))
+    dev_noisy, dev_clean = load_device_frames(ds, "cpu",
+                                              make_mesh(device="cpu"))
+    np.savez(os.path.join(out_dir, f"span.{rank}.npz"), noisy=noisy,
+             clean=clean, dev_noisy=dev_noisy.numpy(),
+             dev_clean=dev_clean.numpy())
+
+
+def run_chunk(rank, n_ranks, out_dir, ml, beta):
+    with np.load(os.path.join(out_dir, "problem.npz")) as z:
+        problem = dict(z)
+    n_layers = sum(1 for k in problem if k.startswith("w"))
+    layers = [{"w": problem[f"w{i}"], "b": problem[f"b{i}"]}
+              for i in range(n_layers)]
+    hyper = TrainHyper(beta=float(beta), ml=ml == "1",
+                       bunchsize=int(problem["starts"].shape[1]),
+                       context=int(problem["context"]),
+                       targ_offset=int(problem["targ_offset"]))
+    mesh = make_mesh(device="cpu")
+    assert (mesh.rank, mesh.size) == (rank, n_ranks)
+    state = make_train_state(params_from_numpy(layers, "cpu"))
+    noisy, clean, starts = shard_train_args(
+        mesh, torch.from_numpy(problem["noisy"]),
+        torch.from_numpy(problem["clean"]),
+        torch.from_numpy(problem["starts"].astype(np.int64)))
+    train_chunk(state, noisy, clean, starts, float(problem["lr"]), hyper,
+                mesh=mesh)
+    mesh.check_replicas(list(state.model.parameters()), "after the chunk")
+    if rank == 0:
+        out = {"alpha": state.alpha.numpy(),
+               "all_reduce_calls": mesh.all_reduce_calls}
+        for i, (p, v) in enumerate(zip(param_layers(state.model),
+                                       state.velocity)):
+            for k in ("w", "b"):
+                out[f"{k}{i}"] = p[k].detach().numpy()
+                out[f"vel_{k}{i}"] = v[k].numpy()
+        np.savez(os.path.join(out_dir, "chunk.npz"), **out)
+
+
+def run_replicas(rank):
+    mesh = make_mesh(device="cpu")
+    weights = [torch.ones(4, 3), torch.zeros(3)]
+    if rank == 1:
+        weights[0][2, 1] = float(np.nextafter(np.float32(1), np.float32(2)))
+    try:
+        mesh.check_replicas(weights, "in the test")
+    except RuntimeError as e:
+        print(e)
+        return 5
+    return 0
+
+
+def run_train(argv):
+    n_target = int(os.environ.get("TPU_SE_TORCH_CRASH_AFTER_CHUNKS", "0"))
+    if n_target:
+        import tpu_se_torch.train.loop as loop_mod
+
+        orig = loop_mod.train_chunk
+        count = {"n": 0}
+
+        def bomb(*a, **k):
+            count["n"] += 1
+            if count["n"] > n_target:
+                os._exit(7)
+            return orig(*a, **k)
+
+        loop_mod.train_chunk = bomb
+
+    from tpu_se_torch.cli.main import main as cli_main
+
+    return cli_main(["train", *argv])
+
+
+def main() -> int:
+    mode = sys.argv[1]
+    if mode == "train":
+        return run_train(sys.argv[2:])
+    rank, n_ranks, port = (int(x) for x in sys.argv[2:5])
+    out_dir, rest = sys.argv[5], sys.argv[6:]
+    info = initialize_distributed(f"127.0.0.1:{port}", n_ranks, rank, "gloo",
+                                  "cpu", timeout=TIMEOUT_S)
+    assert info["process_index"] == rank, info
+    assert info["process_count"] == info["global_devices"] == n_ranks, info
+    assert info["backend"] == "gloo" and info["device"].type == "cpu", info
+    try:
+        if mode == "allgather":
+            run_allgather(rank, n_ranks, out_dir)
+        elif mode == "span":
+            run_span(rank, n_ranks, out_dir, *rest)
+        elif mode == "chunk":
+            run_chunk(rank, n_ranks, out_dir, *rest)
+        elif mode == "replicas":
+            return run_replicas(rank)
+        else:
+            raise SystemExit(f"unknown mode {mode!r}")
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,6 +15,8 @@ Layers:
                              PyTorch versions (``lps_kernel``).
 - ``tpu_se_torch.models`` — the FFN regression model as an ``nn.Module``.
 - ``tpu_se_torch.infer``  — batch decode (wav -> enhanced wav + metrics).
+- ``tpu_se_torch.parallel`` — data-parallel training over
+                             ``torch.distributed``, one process per device.
 - ``tpu_se_torch.cli``    — ``python -m tpu_se_torch decode``.
 """
 

@@ -2,4 +2,6 @@ import sys
 
 from tpu_se_torch.cli.main import main
 
-sys.exit(main())
+# Guarded: a spawned rank of a local mesh imports this module again.
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,16 +46,29 @@ def device_profile(fn, iters: int) -> tuple[float, float, list]:
     """(busy us per call, device launches per call, [(name, us per call,
     launches per call)]) of ``fn`` from ``torch.profiler``: the self device
     time of every entry that ran on the card (kernels and copies; the
-    host-side ``aten::`` ops carry their kernels' time a second time)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / iters, e.count / iters)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0
-            and e.device_type == DeviceType.CUDA]
+    host-side ``aten::`` ops carry their kernels' time a second time).
+
+    A window whose trace comes back without a single device entry (seen
+    once in some dozens of windows on an H100: the tracer delivered no
+    activity records for it) is profiled again, at most twice, and said so;
+    a third empty trace raises."""
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / iters, e.count / iters)
+                for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and e.device_type == DeviceType.CUDA]
+        if rows:
+            break
+        print(f"device_profile: the trace of {iters} calls holds no device "
+              f"entry (attempt {attempt + 1} of 3)")
+    else:
+        raise RuntimeError("torch.profiler traced no device activity in "
+                           "three windows")
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 

@@ -20,8 +20,11 @@ An argument without ``=`` is a format error; an unknown key is ignored
 silently (that is how the reference swallows ``numlayers=``).  The
 ``tpu_se`` extension keys parse the same way, plus ``device`` (``cuda``,
 the default, or ``cpu``).  ``compute_dtype`` is ``float32`` or ``bfloat16``
-(anything else stops the run); ``mesh_data>1`` and ``mesh_model>1`` are not
-supported by the port and stop the run.
+(anything else stops the run).  ``mesh_data=N`` trains the epoch data
+parallel over N ranks of this host, one process per device, started here
+(rank k on card k, or N CPU ranks with ``device=cpu``); rank 0 writes the
+weights and the log.  ``mesh_model>1`` (tensor parallel) is not ported yet
+and stops the run.
 """
 
 from __future__ import annotations
@@ -104,18 +107,69 @@ def _check_supported(cfg: dict) -> None:
     if cfg["compute_dtype"] not in ("float32", "bfloat16"):
         raise SystemExit(f"bptrain: compute_dtype={cfg['compute_dtype']} is "
                          "not float32 or bfloat16")
-    if cfg["mesh_data"] > 1 or cfg["mesh_model"] > 1:
-        raise SystemExit(f"bptrain: mesh_data={cfg['mesh_data']} "
-                         f"mesh_model={cfg['mesh_model']}: tpu_se_torch "
-                         "trains on one device; run a mesh with tpu_se")
+    if cfg["mesh_model"] > 1:
+        from tpu_se_torch.parallel.mesh import MODEL_AXIS_MESSAGE
+
+        raise SystemExit(f"bptrain: mesh_model={cfg['mesh_model']}: "
+                         f"{MODEL_AXIS_MESSAGE.replace('--mesh-model', 'mesh_model=')}")
+    if cfg["mesh_data"] > 1 and cfg["bunchsize"] % cfg["mesh_data"] != 0:
+        raise SystemExit(f"bptrain: bunchsize={cfg['bunchsize']} does not "
+                         f"split evenly over mesh_data={cfg['mesh_data']} "
+                         "ranks")
     if cfg["device_resident"] not in ("auto", "always", "never"):
         raise SystemExit(f"bptrain: device_resident="
                          f"{cfg['device_resident']} is not auto, always "
                          "or never")
 
 
+def _bptrain_rank(rank: int, cfg: dict, port: int, code) -> None:
+    """One rank of ``mesh_data=N``, in its own spawned process; rank 0
+    leaves the epoch's return code in ``code``."""
+    from tpu_se_torch.parallel import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+
+    info = initialize_distributed(f"127.0.0.1:{port}", cfg["mesh_data"],
+                                  rank, None, cfg["device"])
+    try:
+        mesh = make_mesh(cfg["mesh_data"], 1, info["device"])
+        rc = _run_epoch(cfg, mesh.device, mesh,
+                        print if rank == 0 else lambda line: None)
+    finally:
+        shutdown_distributed()
+    if rank == 0:
+        code.value = rc
+
+
 def run_bptrain(cfg: dict, log=print) -> int:
-    """One reference-binary epoch: train, write .wts, CV, write log."""
+    """One reference-binary epoch: train, write .wts, CV, write log; over
+    ``mesh_data`` ranks started here when that is above 1."""
+    import torch
+
+    from tpu_se_torch.utils import resolve_device
+
+    _check_supported(cfg)
+    device = resolve_device(cfg["device"])
+    if cfg["mesh_data"] <= 1:
+        return _run_epoch(cfg, device, None, log)
+
+    import torch.multiprocessing as mp
+
+    from tpu_se_torch.parallel import launch_local_ranks
+    from tpu_se_torch.parallel.mesh import check_mesh_devices, free_port
+
+    if device.type == "cuda":
+        check_mesh_devices(cfg["mesh_data"], cfg["mesh_model"],
+                           torch.cuda.device_count())
+    code = mp.get_context("spawn").Value("i", 1)
+    launch_local_ranks(_bptrain_rank, cfg["mesh_data"],
+                       (dict(cfg, device=device.type), free_port(), code))
+    return code.value
+
+
+def _run_epoch(cfg: dict, device, mesh, log) -> int:
+    """The epoch on ``device``; with ``mesh`` as one rank of it (every rank
+    trains its rows and runs the CV, rank 0 writes the files)."""
     import torch
 
     from tpu_se_torch.data import PfilePairDataset
@@ -125,10 +179,8 @@ def run_bptrain(cfg: dict, log=print) -> int:
         TrainConfig, evaluate_cv, load_device_frames, train_one_epoch,
     )
     from tpu_se_torch.train.step import make_train_state
-    from tpu_se_torch.utils import resolve_device
 
-    _check_supported(cfg)
-    device = resolve_device(cfg["device"])
+    is_main = mesh is None or mesh.rank == 0
     tc = TrainConfig(
         bunchsize=cfg["bunchsize"], ml_flag=bool(cfg["MLflag"]),
         shapefactor=cfg["shapefactor"], momentum=cfg["momentum"],
@@ -150,7 +202,7 @@ def run_bptrain(cfg: dict, log=print) -> int:
                 cfg["device_resident"] == "auto"
                 and ds.span_bytes() > resident_max):
             return ds, None
-        return ds, load_device_frames(ds, device)
+        return ds, load_device_frames(ds, device, mesh)
 
     train_ds, train_frames = dataset(cfg["train_sent_range"])
     cv_ds, cv_frames = dataset(cfg["cv_sent_range"])
@@ -180,10 +232,14 @@ def run_bptrain(cfg: dict, log=print) -> int:
     rng = np.random.default_rng(cfg["init_randem_seed"])
     state = train_one_epoch(state, train_ds, hyper, cfg["lrate"], rng,
                             device, device_frames=train_frames,
-                            log=lines.append)
+                            log=lines.append, mesh=mesh)
     lines.append(f"Total cost time: {time.time() - t0:.1f} s.")
-    save_checkpoint(cfg["outwts_file"], state, with_state=False)
-    log(f"weights -> {cfg['outwts_file']}")
+    if mesh is not None:
+        mesh.check_replicas(list(state.model.parameters()),
+                            "at the end of the epoch")
+    if is_main:
+        save_checkpoint(cfg["outwts_file"], state, with_state=False)
+        log(f"weights -> {cfg['outwts_file']}")
 
     lines.append("Starting CV.")
     metrics = evaluate_cv(state, cv_ds, hyper, device,
@@ -197,7 +253,7 @@ def run_bptrain(cfg: dict, log=print) -> int:
     if cfg["MLflag"]:
         lines.append(f"CV2 over. CV log likelihood: "
                      f"{metrics['cv_ggd_loglik'] / n:f}")
-    if cfg["log_file"]:
+    if cfg["log_file"] and is_main:
         log_dir = os.path.dirname(cfg["log_file"])
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)

@@ -275,7 +275,12 @@ def cmd_gen_rand_net(args) -> int:
 
 
 def cmd_train(args) -> int:
+    from tpu_se_torch.parallel import MeshConfig
+    from tpu_se_torch.parallel.mesh import MODEL_AXIS_MESSAGE
     from tpu_se_torch.train import TrainConfig, run_training
+
+    if args.mesh_model > 1:
+        raise SystemExit(f"train: {MODEL_AXIS_MESSAGE}")
 
     cfg = TrainConfig(
         fea_file=args.fea_file, targ_file=args.targ_file,
@@ -297,7 +302,14 @@ def cmd_train(args) -> int:
         dropout_flag=bool(args.dropoutflag),
         visible_omit=args.visible_omit, hid_omit=args.hid_omit,
         checkpoint_every_chunks=args.checkpoint_every_chunks,
+        coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, cpu_collectives=args.cpu_collectives,
     )
+    # Under a coordinator the mesh spans the process group, whatever
+    # --mesh-data says (it must agree); without one, --mesh-data N starts N
+    # local ranks.
+    if args.mesh_data > 1:
+        cfg.mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model)
     if args.init_ranges:
         vals = tuple(float(x) for x in args.init_ranges.split(","))
         if len(vals) != 4:
@@ -434,6 +446,21 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--dropoutflag", type=int, default=0)
     s.add_argument("--visible-omit", type=float, default=0.1)
     s.add_argument("--hid-omit", type=float, default=0.1)
+    s.add_argument("--mesh-data", type=int, default=1,
+                   help="data-parallel ranks, one per device; without "
+                        "--coordinator the ranks are started here, rank k "
+                        "on card k (or on the CPU)")
+    s.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel axis; only 1 is supported")
+    s.add_argument("--coordinator", default="",
+                   help="host:port of rank 0: this process joins a "
+                        "torch.distributed group as one rank of the data "
+                        "mesh (NCCL for --device cuda, gloo for cpu)")
+    s.add_argument("--num-processes", type=int, default=None)
+    s.add_argument("--process-id", type=int, default=None)
+    s.add_argument("--cpu-collectives", default="",
+                   help="'gloo': host collectives whatever the device, "
+                        "which lets ranks share one card")
     s.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails when no GPU is available) "
                         "or 'cpu'")

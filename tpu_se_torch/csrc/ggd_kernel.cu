@@ -70,6 +70,25 @@
 //   more loads in flight pay where it has hundreds (M = 8192: 14.3
 //   against 17.6).
 //
+// The split form, for data-parallel training.  alpha_d is a statistic of
+// the GLOBAL bunch; a rank holds only its rows of it, so the other ranks'
+// sums must enter between steps 3 and 4.  Two more entry points run the
+// same device code (the steps below are __device__ functions shared by all
+// three, under the same plan and the same cluster launch):
+//
+// - ggd_colsum: steps 1-3; the cluster's first block writes the strip's
+//   sum_m |e|^beta (not yet the mean) to sums[D].  It must move
+//   4 * (2 * M * D + D) bytes.
+// - ggd_grad_from_sums: the alpha and scale arithmetic of step 3 from the
+//   given sums with m = M_global, then step 4 reading out - targ again.
+//   It must move 4 * (3 * M * D + 2 * D) bytes.
+//
+// The caller adds the ranks' sums in between (an all-reduce of D floats).
+// Fed its own sums with M_global = M the pair gives the fused kernel's
+// dedx and alpha bit for bit: the sums are added in the same order, and
+// alpha, the scale and the gradient come from the same expressions.  At a
+// rank's 64-128 rows both launches are bound by the launch itself.
+//
 // Every sum runs in a fixed order, so a rerun on the same input is bitwise
 // identical (bit-exact resume depends on it).  Ragged edges in D and in M
 // are masked; a block with no rows, or a strip with one live column, still
@@ -157,53 +176,54 @@ __device__ __forceinline__ float abs_pow(float e, float beta) {
   return e == 0.0f ? 0.0f : powf(fabsf(e), beta);
 }
 
-// One cluster per strip of kCols columns; cluster rank k owns rows
-// [k * rows_per_block, (k + 1) * rows_per_block).  Thread (ty, tx) walks
-// rows ty, ty + kRowThreads, ... of its block's rows in column tx, kBatch
-// rows at a time: the loads of a batch are all issued before the first is
-// used.
-template <int kCols, int kBlock, bool kBetaOne, bool kKeep>
-__global__ void __launch_bounds__(kBlock, kBlock > 512 ? 1 : 2)
-ggd_kernel(const float* __restrict__ out, const float* __restrict__ targ,
-           float* __restrict__ dedx, float* __restrict__ alpha, int M, int D,
-           int rows_per_block, float beta, float beta_m1, float inv_beta) {
-  constexpr int kRowThreads = kBlock / kCols;
-  // Rows a thread loads at a time: few where a thread has few rows (the
-  // empty slots of a batch cost instructions), many where it has many.
+// Which of the kernel's steps a launch runs.
+enum Mode {
+  kFused = 0,     // steps 1-5: (out, targ) -> (dedx, alpha)
+  kColsum = 1,    // steps 1-3: (out, targ) -> sums
+  kFromSums = 2,  // the arithmetic of step 3 on given sums, then step 4
+};
+
+// Rows a thread loads at a time: few where a thread has few rows (the
+// empty slots of a batch cost instructions), many where it has many.
+template <int kCols>
+struct Batch {
 #ifdef GGD_FORCE_BATCH
-  constexpr int kBatch = GGD_FORCE_BATCH;
+  static constexpr int value = GGD_FORCE_BATCH;
 #else
-  constexpr int kBatch = kCols == 32 ? 4 : 16;
+  static constexpr int value = kCols == 32 ? 4 : 16;
 #endif
-  extern __shared__ float e_tile[];       // [rows_per_block][kCols], if kKeep
-  __shared__ float sums[kRowThreads][kCols];
-  __shared__ float block_sum[kCols];      // read by the whole cluster
-  __shared__ float col_scale[kCols];
+};
 
-  GGD_PROBE_AT(0);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tx = threadIdx.x % kCols;
-  const int ty = threadIdx.x / kCols;
-  const int col = blockIdx.x * kCols + tx;
-  const bool live = col < D;
-  const unsigned rank = cluster.block_rank();
-  const long long row0 = static_cast<long long>(rank) * rows_per_block;
-  const long long row_end =
-      row0 + rows_per_block < M ? row0 + rows_per_block : M;
-  const float m = static_cast<float>(M);
+// Where a thread stands: column `col` (tx within the strip), row thread ty
+// of its block, whose rows are [row0, row_end).
+struct Place {
+  int tx, ty, col;
+  bool live;
+  long long row0, row_end;
+};
 
-  // 1. e once from device memory; this thread's sum of |e|^beta, in row
-  //    order (beta == 1: |e|, which is what powf(|e|, 1) gives).
+// Steps 1 and 2.  e once from device memory; this thread's sum of
+// |e|^beta, in row order (beta == 1: |e|, which is what powf(|e|, 1)
+// gives); then the block's column sums by a fixed tree over the row
+// threads, left in block_sum.  With kKeep e stays in e_tile.
+template <int kCols, int kBlock, bool kBetaOne, bool kKeep>
+__device__ __forceinline__ void block_column_sums(
+    const float* __restrict__ out, const float* __restrict__ targ,
+    float* e_tile, float (*sums)[kCols], float* block_sum, const Place& at,
+    int D, float beta) {
+  constexpr int kRowThreads = kBlock / kCols;
+  constexpr int kBatch = Batch<kCols>::value;
   float acc = 0.0f;
-  if (live) {
-    for (long long r = row0 + ty; r < row_end; r += kBatch * kRowThreads) {
+  if (at.live) {
+    for (long long r = at.row0 + at.ty; r < at.row_end;
+         r += kBatch * kRowThreads) {
       float o[kBatch], t[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const long long rk = r + k * kRowThreads;
         o[k] = t[k] = 0.0f;
-        if (rk < row_end) {
-          const size_t i = static_cast<size_t>(rk) * D + col;
+        if (rk < at.row_end) {
+          const size_t i = static_cast<size_t>(rk) * D + at.col;
           o[k] = out[i];
           t[k] = targ[i];
         }
@@ -211,9 +231,9 @@ ggd_kernel(const float* __restrict__ out, const float* __restrict__ targ,
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const long long rk = r + k * kRowThreads;
-        if (rk < row_end) {
+        if (rk < at.row_end) {
           const float e = o[k] - t[k];
-          if (kKeep) e_tile[(rk - row0) * kCols + tx] = e;
+          if (kKeep) e_tile[(rk - at.row0) * kCols + at.tx] = e;
           acc += kBetaOne ? fabsf(e) : abs_pow(e, beta);
         }
       }
@@ -221,73 +241,150 @@ ggd_kernel(const float* __restrict__ out, const float* __restrict__ targ,
   }
   GGD_PROBE_AT(1);
 
-  // 2. The block's column sums: a fixed tree over the row threads.
-  sums[ty][tx] = acc;
+  sums[at.ty][at.tx] = acc;
   __syncthreads();
 #pragma unroll
   for (int half = kRowThreads / 2; half > 0; half /= 2) {
-    if (ty < half) sums[ty][tx] += sums[ty + half][tx];
+    if (at.ty < half) sums[at.ty][at.tx] += sums[at.ty + half][at.tx];
     __syncthreads();
   }
-  if (ty == 0) block_sum[tx] = sums[0][tx];
+  if (at.ty == 0) block_sum[at.tx] = sums[0][at.tx];
   GGD_PROBE_AT(2);
+}
 
-  // 3. Every block's first row thread adds the cluster's sums in rank
-  //    order, over distributed shared memory: the same alpha in every
-  //    block, bit for bit.  Once they are read, the block tells the cluster
-  //    so (the wait is at the kernel's end).
-  cluster.sync();
-  GGD_PROBE_AT(3);
-  if (ty == 0) {
-    float total = 0.0f;
-    const unsigned n_ranks = cluster.num_blocks();
-    for (unsigned k = 0; k < n_ranks; ++k)
-      total += *cluster.map_shared_rank(&block_sum[tx], k);
-    const float mean_term = beta * (total / m);
-    const float a = kBetaOne ? mean_term : powf(mean_term, inv_beta);
-    float scale = 0.0f;
-    if (a != 0.0f) scale = beta / (kBetaOne ? a : powf(a, beta));
-    col_scale[tx] = scale;
-    if (rank == 0 && live) alpha[col] = a;
-  }
-  __syncthreads();
-  cluster_arrive();
-  const float scale = col_scale[tx];
+// The cluster's sums of one column, added in rank order over distributed
+// shared memory: the same total in every block, bit for bit.
+__device__ __forceinline__ float cluster_column_sum(
+    cg::cluster_group& cluster, float* block_sum, int tx) {
+  float total = 0.0f;
+  const unsigned n_ranks = cluster.num_blocks();
+  for (unsigned k = 0; k < n_ranks; ++k)
+    total += *cluster.map_shared_rank(&block_sum[tx], k);
+  return total;
+}
+
+// alpha and the gradient's column scale from a column's sum over m rows.
+template <bool kBetaOne>
+__device__ __forceinline__ float alpha_and_scale(float total, float m,
+                                                 float beta, float inv_beta,
+                                                 float* alpha) {
+  const float mean_term = beta * (total / m);
+  const float a = kBetaOne ? mean_term : powf(mean_term, inv_beta);
+  float scale = 0.0f;
+  if (a != 0.0f) scale = beta / (kBetaOne ? a : powf(a, beta));
+  *alpha = a;
+  return scale;
+}
+
+// Step 4.  The gradient from the e kept on chip (or read again).
+template <int kCols, int kBlock, bool kBetaOne, bool kKeep>
+__device__ __forceinline__ void write_gradient(
+    const float* __restrict__ out, const float* __restrict__ targ,
+    float* __restrict__ dedx, const float* e_tile, const Place& at, int D,
+    float scale, float m, float beta_m1) {
+  constexpr int kRowThreads = kBlock / kCols;
+  constexpr int kBatch = Batch<kCols>::value;
   // beta == 1: sign(e) |e|^0 = +-1, and (+-1 * scale) / m = +-(scale / m).
   const float unit = scale / m;
-  GGD_PROBE_AT(4);
-
-  // 4. The gradient from the e kept on chip (or read again).
-  if (live) {
-    for (long long r = row0 + ty; r < row_end; r += kBatch * kRowThreads) {
+  if (at.live) {
+    for (long long r = at.row0 + at.ty; r < at.row_end;
+         r += kBatch * kRowThreads) {
       float e[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const long long rk = r + k * kRowThreads;
         e[k] = 0.0f;
-        if (rk < row_end) {
-          const size_t i = static_cast<size_t>(rk) * D + col;
-          e[k] = kKeep ? e_tile[(rk - row0) * kCols + tx] : out[i] - targ[i];
+        if (rk < at.row_end) {
+          const size_t i = static_cast<size_t>(rk) * D + at.col;
+          e[k] = kKeep ? e_tile[(rk - at.row0) * kCols + at.tx]
+                       : out[i] - targ[i];
         }
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const long long rk = r + k * kRowThreads;
-        if (rk < row_end) {
+        if (rk < at.row_end) {
           float g = 0.0f;
           if (e[k] != 0.0f)
             g = kBetaOne ? copysignf(unit, e[k])
                          : copysignf(powf(fabsf(e[k]), beta_m1), e[k]) *
                                scale / m;
-          dedx[static_cast<size_t>(rk) * D + col] = g;
+          dedx[static_cast<size_t>(rk) * D + at.col] = g;
         }
       }
     }
   }
+}
+
+// One cluster per strip of kCols columns; cluster rank k owns rows
+// [k * rows_per_block, (k + 1) * rows_per_block).  Thread (ty, tx) walks
+// rows ty, ty + kRowThreads, ... of its block's rows in column tx, a batch
+// of rows at a time: the loads of a batch are all in flight before the first
+// is used.  m_rows is the bunch the mean and the 1/M are taken over: M
+// itself, or under kFromSums the global bunch that `sums` were added over.
+// `sums` is written under kColsum, read under kFromSums, unused when fused.
+template <int kCols, int kBlock, bool kBetaOne, bool kKeep, int kMode>
+__global__ void __launch_bounds__(kBlock, kBlock > 512 ? 1 : 2)
+ggd_kernel(const float* __restrict__ out, const float* __restrict__ targ,
+           float* __restrict__ dedx, float* __restrict__ alpha,
+           float* __restrict__ sums_io, int M, int D, int rows_per_block,
+           int m_rows, float beta, float beta_m1, float inv_beta) {
+  constexpr int kRowThreads = kBlock / kCols;
+  extern __shared__ float e_tile[];       // [rows_per_block][kCols], if kKeep
+  __shared__ float sums[kRowThreads][kCols];
+  __shared__ float block_sum[kCols];      // read by the whole cluster
+  __shared__ float col_scale[kCols];
+
+  GGD_PROBE_AT(0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  Place at;
+  at.tx = threadIdx.x % kCols;
+  at.ty = threadIdx.x / kCols;
+  at.col = blockIdx.x * kCols + at.tx;
+  at.live = at.col < D;
+  at.row0 = static_cast<long long>(rank) * rows_per_block;
+  at.row_end = at.row0 + rows_per_block < M ? at.row0 + rows_per_block : M;
+  const float m = static_cast<float>(m_rows);
+
+  if (kMode != kFromSums) {
+    block_column_sums<kCols, kBlock, kBetaOne, kKeep>(
+        out, targ, e_tile, sums, block_sum, at, D, beta);
+
+    // 3. Every block's first row thread adds the cluster's sums in rank
+    //    order, over distributed shared memory: the same alpha in every
+    //    block, bit for bit.  Once they are read, the block tells the
+    //    cluster so (the wait is at the kernel's end).
+    cluster.sync();
+    GGD_PROBE_AT(3);
+  }
+  if (kMode == kColsum) {
+    if (at.ty == 0 && rank == 0 && at.live)
+      sums_io[at.col] = cluster_column_sum(cluster, block_sum, at.tx);
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+  if (at.ty == 0) {
+    const float total =
+        kMode == kFromSums
+            ? (at.live ? sums_io[at.col] : 0.0f)
+            : cluster_column_sum(cluster, block_sum, at.tx);
+    float a;
+    col_scale[at.tx] =
+        alpha_and_scale<kBetaOne>(total, m, beta, inv_beta, &a);
+    if (rank == 0 && at.live) alpha[at.col] = a;
+  }
+  __syncthreads();
+  if (kMode == kFused) cluster_arrive();
+  GGD_PROBE_AT(4);
+
+  write_gradient<kCols, kBlock, kBetaOne, kKeep>(
+      out, targ, dedx, e_tile, at, D, col_scale[at.tx], m, beta_m1);
   GGD_PROBE_AT(5);
 
   // 5. No block leaves while a neighbour may still read its block_sum.
-  cluster_wait();
+  if (kMode == kFused) cluster_wait();
   GGD_PROBE_AT(6);
 }
 
@@ -302,7 +399,9 @@ struct Args {
   const float* targ;
   float* dedx;
   float* alpha;
+  float* sums;   // written under kColsum, read under kFromSums, else null
   int M, D;
+  int m_rows;    // the rows the mean is over: M, or the global bunch
   float beta, beta_m1, inv_beta;
   cudaStream_t stream;
 };
@@ -332,9 +431,9 @@ cudaError_t launch_clustered(Kernel kernel, const Plan& p, int D,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int kCols, int kBlock, bool kBetaOne, bool kKeep>
+template <int kCols, int kBlock, bool kBetaOne, bool kKeep, int kMode>
 cudaError_t launch(const Plan& p, const Args& a) {
-  auto kernel = ggd_kernel<kCols, kBlock, kBetaOne, kKeep>;
+  auto kernel = ggd_kernel<kCols, kBlock, kBetaOne, kKeep, kMode>;
   size_t shared_bytes = 0;
   if (kKeep) {
     shared_bytes =
@@ -347,31 +446,37 @@ cudaError_t launch(const Plan& p, const Args& a) {
     }
   }
   return launch_clustered(kernel, p, a.D, shared_bytes, a.stream, a.out,
-                          a.targ, a.dedx, a.alpha, a.M, a.D, p.rows_per_block,
-                          a.beta, a.beta_m1, a.inv_beta);
+                          a.targ, a.dedx, a.alpha, a.sums, a.M, a.D,
+                          p.rows_per_block, a.m_rows, a.beta, a.beta_m1,
+                          a.inv_beta);
 }
 
-template <int kCols, int kBlock, bool kBetaOne>
+// Only the fused kernel keeps e on chip: the split entry points have no
+// second step within one launch to keep it for.
+template <int kCols, int kBlock, bool kBetaOne, int kMode>
 cudaError_t launch_keep(const Plan& p, const Args& a) {
-  return p.keep ? launch<kCols, kBlock, kBetaOne, true>(p, a)
-                : launch<kCols, kBlock, kBetaOne, false>(p, a);
+  if (kMode != kFused)
+    return launch<kCols, kBlock, kBetaOne, false, kMode>(p, a);
+  return p.keep ? launch<kCols, kBlock, kBetaOne, true, kFused>(p, a)
+                : launch<kCols, kBlock, kBetaOne, false, kFused>(p, a);
 }
 
-template <bool kBetaOne>
+template <bool kBetaOne, int kMode>
 cudaError_t launch_shape(const Plan& p, const Args& a) {
 #ifdef GGD_FORCE_COLS
-  return launch_keep<GGD_FORCE_COLS, GGD_FORCE_THREADS, kBetaOne>(p, a);
+  return launch_keep<GGD_FORCE_COLS, GGD_FORCE_THREADS, kBetaOne, kMode>(p, a);
 #else
-  return p.cols == 32 ? launch_keep<32, kThreads, kBetaOne>(p, a)
-                      : launch_keep<16, kThreads, kBetaOne>(p, a);
+  return p.cols == 32 ? launch_keep<32, kThreads, kBetaOne, kMode>(p, a)
+                      : launch_keep<16, kThreads, kBetaOne, kMode>(p, a);
 #endif
 }
 
+template <int kMode>
 int run(const Args& a, bool shortcut) {
   const Plan p = make_plan(a.M, a.D);
   const cudaError_t err = shortcut && a.beta == 1.0f
-                              ? launch_shape<true>(p, a)
-                              : launch_shape<false>(p, a);
+                              ? launch_shape<true, kMode>(p, a)
+                              : launch_shape<false, kMode>(p, a);
   return static_cast<int>(err);
 }
 
@@ -403,8 +508,8 @@ extern "C" int ggd_output_grad(const float* out, const float* targ,
                                float* dedx, float* alpha, int M, int D,
                                float beta, float beta_m1, float inv_beta,
                                void* stream) {
-  return run({out, targ, dedx, alpha, M, D, beta, beta_m1, inv_beta,
-              static_cast<cudaStream_t>(stream)}, true);
+  return run<kFused>({out, targ, dedx, alpha, nullptr, M, D, M, beta, beta_m1,
+                      inv_beta, static_cast<cudaStream_t>(stream)}, true);
 }
 
 // The same through powf at every beta, beta == 1 too: what the beta == 1
@@ -413,8 +518,30 @@ extern "C" int ggd_output_grad_general(const float* out, const float* targ,
                                        float* dedx, float* alpha, int M, int D,
                                        float beta, float beta_m1,
                                        float inv_beta, void* stream) {
-  return run({out, targ, dedx, alpha, M, D, beta, beta_m1, inv_beta,
-              static_cast<cudaStream_t>(stream)}, false);
+  return run<kFused>({out, targ, dedx, alpha, nullptr, M, D, M, beta, beta_m1,
+                      inv_beta, static_cast<cudaStream_t>(stream)}, false);
+}
+
+// The first half of the split form.  out, targ [M, D] -> sums [D] =
+// sum_m |out - targ|^beta (0 where out == targ), this rank's rows only; the
+// sums are added as ggd_output_grad adds them.  One launch.
+extern "C" int ggd_colsum(const float* out, const float* targ, float* sums,
+                          int M, int D, float beta, void* stream) {
+  return run<kColsum>({out, targ, nullptr, nullptr, sums, M, D, M, beta, 0.0f,
+                       0.0f, static_cast<cudaStream_t>(stream)}, true);
+}
+
+// The second half.  sums [D] are the column sums over M_global >= M rows
+// (every rank's added); out, targ [M, D] are this rank's rows -> dedx
+// [M, D] including 1 / M_global, alpha [D] of the global bunch.  One launch.
+extern "C" int ggd_grad_from_sums(const float* out, const float* targ,
+                                  const float* sums, float* dedx, float* alpha,
+                                  int M, int D, int M_global, float beta,
+                                  float beta_m1, float inv_beta,
+                                  void* stream) {
+  return run<kFromSums>({out, targ, dedx, alpha, const_cast<float*>(sums), M,
+                         D, M_global, beta, beta_m1, inv_beta,
+                         static_cast<cudaStream_t>(stream)}, true);
 }
 
 // An empty kernel launched as ggd_output_grad launches its kernel for an

@@ -136,9 +136,36 @@ class PfilePairDataset:
         lo, hi = self.frame_span()
         return (hi - lo) * (self._dim + self._clean_dim) * 4
 
-    def load_span_normalized(self) -> tuple[np.ndarray, np.ndarray]:
-        """Normalized (noisy, clean) frames of the whole range."""
-        return self._read_pair(*self.frame_span())
+    def load_span_shard(self, process_index: int, process_count: int
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """Normalized (noisy, clean) frames of this rank's
+        ``shard_for_host`` slice of the range's rows: 1 / process_count of
+        the bytes read from storage."""
+        from tpu_se_torch.data.pipeline import shard_for_host
+
+        lo, hi = self.frame_span()
+        s = shard_for_host(hi - lo, process_index, process_count)
+        return self._read_pair(lo + s.start, lo + s.stop)
+
+    def load_span_normalized(self, process_shard: tuple[int, int] | None = None
+                             ) -> tuple[np.ndarray, np.ndarray]:
+        """Normalized (noisy, clean) frames of the whole range.
+
+        ``process_shard=(process_index, process_count)``: data-parallel
+        input sharding.  This rank reads only its ``load_span_shard`` rows
+        and the span is reassembled across the ranks of the default
+        process group (``allgather_host_rows``), byte-identical to the
+        unsharded read.
+        """
+        if process_shard is None or process_shard[1] <= 1:
+            return self._read_pair(*self.frame_span())
+        from tpu_se_torch.parallel.distributed import allgather_host_rows
+
+        pid, pcount = process_shard
+        lo, hi = self.frame_span()
+        noisy, clean = self.load_span_shard(pid, pcount)
+        return (allgather_host_rows(noisy, hi - lo, pid, pcount),
+                allgather_host_rows(clean, hi - lo, pid, pcount))
 
     def chunk_starts(self, idx: int,
                      rng: np.random.Generator | None = None) -> np.ndarray:

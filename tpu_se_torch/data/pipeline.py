@@ -2,6 +2,8 @@
 (``BPtrain.cc:15-54``), as a copy of ``tpu_se/data/pipeline.py``'s
 ``PrefetchIterator``.  numpy releases the GIL for the heavy read and
 normalize work, so the overlap with the training loop is real.
+``shard_for_host`` is the same module's split of a work list over the
+ranks of a data-parallel run.
 """
 
 from __future__ import annotations
@@ -49,3 +51,19 @@ class PrefetchIterator(Iterator[T]):
                 raise self._err
             raise StopIteration
         return item
+
+
+def shard_for_host(n_items: int, process_index: int, process_count: int
+                   ) -> slice:
+    """Contiguous per-rank shard of a global work list, as
+    ``tpu_se.data.pipeline.shard_for_host`` cuts it: the first
+    ``n_items % process_count`` ranks take one item more.
+
+    Data-parallel input: each rank reads only its slice of the rows from
+    storage; the collectives see the global bunch.
+    """
+    per = n_items // process_count
+    extra = n_items % process_count
+    lo = process_index * per + min(process_index, extra)
+    hi = lo + per + (1 if process_index < extra else 0)
+    return slice(lo, hi)

@@ -11,7 +11,9 @@ Port of ``tpu_se/losses/objectives.py`` (reference
   |e_md|^beta)^(1/beta)``, then ``beta * sign(e) * |e|^(beta-1) /
   alpha_d^beta``.  ``output_grad_and_alpha(ml=True)`` runs the fused Hopper
   kernel (``tpu_se_torch.ops.ggd_kernel``) on a CUDA tensor, and the plain
-  composition of ``ggd_alpha`` and ``ggd_grad`` on a CPU one.
+  composition of ``ggd_alpha`` and ``ggd_grad`` on a CPU one.  Under a data
+  mesh alpha is a statistic of the GLOBAL bunch: the kernel runs in its
+  split form, the ranks' column sums all-reduced between its two launches.
 
 Both gradients carry the loss-side 1/M (``DevVecMulNum``); the optimizer
 divides by M again in parity mode.  ``ggd_loglik`` and ``ref_gamma`` are
@@ -59,25 +61,42 @@ def ggd_grad(err: torch.Tensor, alpha: torch.Tensor,
 
 
 def output_grad_and_alpha(out: torch.Tensor, targ: torch.Tensor, beta: float,
-                          ml: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                          ml: bool, mesh=None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's output-layer gradient for one bunch -> (dedx [M, D]
     including the loss-side 1/M, alpha [D]; ones when ``ml`` is false).
 
     ``ml=True`` on a CUDA tensor launches the GGD kernel (and raises if it
     cannot); on a CPU tensor it runs the kernel's plain version.
+
+    With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``out`` and ``targ``
+    are this rank's M / size rows of the bunch: the column sums of
+    |e|^beta are added over the ranks (one all-reduce of D floats), alpha
+    is the global bunch's on every rank, and the 1/M is the global M's.
+    The beta-norm needs no statistic, only that 1/M.
     """
+    m_global = out.shape[0] * (1 if mesh is None else mesh.size)
     if ml:
-        # Imported here: the kernel module's plain version is built from
+        # Imported here: the kernel module's plain versions are built from
         # this module's functions.
         from tpu_se_torch.ops import ggd_kernel
 
-        if out.device.type == "cuda":
-            return ggd_kernel.ggd_output_grad_cuda(out, targ, beta)
-        if out.device.type == "cpu":
-            return ggd_kernel.ggd_output_grad_plain(out, targ, beta)
-        raise ValueError(f"no GGD gradient path for device {out.device}")
+        if out.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no GGD gradient path for device {out.device}")
+        on_card = out.device.type == "cuda"
+        if mesh is None:
+            fused = (ggd_kernel.ggd_output_grad_cuda if on_card
+                     else ggd_kernel.ggd_output_grad_plain)
+            return fused(out, targ, beta)
+        colsum, from_sums = (
+            (ggd_kernel.ggd_colsum_cuda, ggd_kernel.ggd_grad_from_sums_cuda)
+            if on_card else
+            (ggd_kernel.ggd_colsum_plain,
+             ggd_kernel.ggd_grad_from_sums_plain))
+        sums = mesh.all_reduce_sum(colsum(out, targ, beta))
+        return from_sums(out, targ, sums, m_global, beta)
     alpha = torch.ones(out.shape[1], dtype=out.dtype, device=out.device)
-    return beta_norm_grad(out, targ, beta) / out.shape[0], alpha
+    return beta_norm_grad(out, targ, beta) / m_global, alpha
 
 
 def ggd_loglik(err, alpha, beta: float, use_ref_gamma: bool = True) -> float:

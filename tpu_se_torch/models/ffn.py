@@ -161,7 +161,8 @@ class FFN(nn.Module):
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32,
                 act_dtype: torch.dtype | None = None,
-                cast_weights: list | None = None) -> torch.Tensor:
+                cast_weights: list | None = None,
+                dropout_rows: tuple | None = None) -> torch.Tensor:
         """x [M, n_in] -> [M, n_out], float32.
 
         ``compute_dtype`` is the type of the products' operands
@@ -177,6 +178,10 @@ class FFN(nn.Module):
         with ``hid_omit``; kept values are scaled by 1/(1-p) (inverted
         dropout, so inference needs no weight rescaling).  The masks come
         from ``generator``, which must lie on ``x``'s device.
+        ``dropout_rows=(lo, m_global)`` says that ``x`` is rows [lo, lo + M)
+        of a bunch of ``m_global`` rows shared with other ranks: the masks
+        of the whole bunch are drawn and this rank keeps its rows, so the
+        ranks together draw what one process would.
         """
         if dropout is not None and generator is None:
             raise ValueError("dropout needs a torch.Generator")
@@ -186,8 +191,15 @@ class FFN(nn.Module):
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
             p = 0.0 if dropout is None else dropout[0 if i == 0 else 1]
             if p > 0.0:
-                keep = torch.rand(h.shape, generator=generator,
-                                  device=h.device) < 1.0 - p
+                if dropout_rows is None:
+                    draw = torch.rand(h.shape, generator=generator,
+                                      device=h.device)
+                else:
+                    lo, m_global = dropout_rows
+                    draw = torch.rand((m_global, h.shape[1]),
+                                      generator=generator,
+                                      device=h.device)[lo:lo + h.shape[0]]
+                keep = draw < 1.0 - p
                 h = torch.where(keep, h / (1.0 - p), 0.0)
             if compute_dtype == torch.float32:
                 # .float() is the tensor itself unless act_dtype made it

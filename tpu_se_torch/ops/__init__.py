@@ -7,9 +7,12 @@ choose the plain version for CPU tensors (see ``tpu_se_torch.dsp`` and
 
 from tpu_se_torch.ops import ggd_kernel, lps_kernel
 from tpu_se_torch.ops.ggd_kernel import (
-    ggd_output_grad_cuda, ggd_output_grad_plain,
+    ggd_colsum_cuda, ggd_colsum_plain, ggd_grad_from_sums_cuda,
+    ggd_grad_from_sums_plain, ggd_output_grad_cuda, ggd_output_grad_plain,
 )
 from tpu_se_torch.ops.lps_kernel import lps_cuda, lps_plain
 
 __all__ = ["ggd_kernel", "lps_kernel", "ggd_output_grad_cuda",
-           "ggd_output_grad_plain", "lps_cuda", "lps_plain"]
+           "ggd_output_grad_plain", "ggd_colsum_cuda", "ggd_colsum_plain",
+           "ggd_grad_from_sums_cuda", "ggd_grad_from_sums_plain",
+           "lps_cuda", "lps_plain"]

@@ -131,6 +131,11 @@ def bind_ggd(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.ggd_output_grad, lib.ggd_output_grad_general):
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, f32, f32, ptr]
         fn.restype = i32
+    lib.ggd_colsum.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
+    lib.ggd_colsum.restype = i32
+    lib.ggd_grad_from_sums.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       f32, f32, f32, ptr]
+    lib.ggd_grad_from_sums.restype = i32
     lib.ggd_plan.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.ggd_plan.restype = None
     lib.ggd_launch_floor.argtypes = [i32, i32, ptr]

@@ -22,6 +22,26 @@ identical.
 - ``launches`` counts ``ggd_output_grad_cuda``'s calls that launched the
   kernel (and nothing else), so a run can show that its main path went
   through the kernel.
+
+The split form, for data-parallel training: alpha is a statistic of the
+GLOBAL bunch, of which a rank holds only its rows, so the other ranks'
+column sums enter between the sums and the gradient.
+
+- ``ggd_colsum_cuda(out, targ, beta) -> sums [D]`` launches the kernel's
+  first three steps (``ggd_colsum`` in the library): sum_m |e|^beta over
+  this rank's rows, not yet the mean.
+- ``ggd_grad_from_sums_cuda(out, targ, sums, m_global, beta) -> (dedx,
+  alpha)`` launches the rest (``ggd_grad_from_sums``): alpha and the scale
+  from the given sums over ``m_global`` rows, then the gradient of this
+  rank's rows with 1 / ``m_global``.
+- The caller adds the ranks' sums in between (an all-reduce of D floats).
+  Fed its own sums with ``m_global = M`` the pair gives the fused kernel's
+  bits: the three share their device code and their sum order.
+- ``ggd_colsum_plain`` / ``ggd_grad_from_sums_plain`` are the same two
+  functions in plain PyTorch, and on the CPU their composition at one rank
+  is ``ggd_output_grad_plain`` bit for bit.
+- ``colsum_launches`` / ``grad_from_sums_launches`` count the two wrappers'
+  launches as ``launches`` counts the fused one's.
 """
 
 from __future__ import annotations
@@ -42,6 +62,8 @@ TILE_BYTES = 96 * 1024        # most of the error a block keeps on chip
 MAX_ROWS = 2**31 - 1          # M and D are C ints
 
 launches = 0
+colsum_launches = 0
+grad_from_sums_launches = 0
 
 
 def ggd_output_grad_plain(out: torch.Tensor, targ: torch.Tensor,
@@ -51,6 +73,23 @@ def ggd_output_grad_plain(out: torch.Tensor, targ: torch.Tensor,
     err = out - targ
     alpha = ggd_alpha(err, beta)
     return ggd_grad(err, alpha, beta) / out.shape[0], alpha
+
+
+def ggd_colsum_plain(out: torch.Tensor, targ: torch.Tensor,
+                     beta: float) -> torch.Tensor:
+    """(out, targ) [M, D] -> sum_m |out - targ|^beta [D], in PyTorch on the
+    tensors' device: the numerator of ``ggd_alpha``'s mean."""
+    return torch.sum((out - targ).abs() ** beta, dim=0)
+
+
+def ggd_grad_from_sums_plain(out: torch.Tensor, targ: torch.Tensor,
+                             sums: torch.Tensor, m_global: int, beta: float
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (out, targ) [M, D] and the column sums [D] of
+    |e|^beta over all ``m_global`` rows of the bunch -> (dedx [M, D]
+    including 1 / m_global, alpha [D] of the global bunch)."""
+    alpha = (beta * (sums / m_global)) ** (1.0 / beta)
+    return ggd_grad(out - targ, alpha, beta) / m_global, alpha
 
 
 class GgdPlan(NamedTuple):
@@ -75,37 +114,55 @@ def plan(m: int, d: int) -> GgdPlan:
 PLAN_SWITCH_ROWS = (WIDE_MAX_M, CLUSTER * (TILE_BYTES // (16 * 4)))
 
 
-def check_ggd_args(out: torch.Tensor, targ: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless (out, targ) is what the kernel takes:
-    float32, 2-D, contiguous, equal non-empty shapes of at most
-    ``MAX_ROWS`` rows and columns, CUDA and on one device.  The device is
-    checked last, so every other check can be tested on the CPU."""
+def check_ggd_args(out: torch.Tensor, targ: torch.Tensor,
+                   fn: str = "ggd_output_grad_cuda") -> None:
+    """Raise ``ValueError`` (in the name of wrapper ``fn``) unless (out,
+    targ) is what the kernel takes: float32, 2-D, contiguous, equal
+    non-empty shapes of at most ``MAX_ROWS`` rows and columns, CUDA and on
+    one device.  The device is checked last, so every other check can be
+    tested on the CPU."""
     for name, x in (("out", out), ("targ", targ)):
         if x.dtype != torch.float32:
-            raise ValueError(f"ggd_output_grad_cuda: {name} must be float32, "
-                             f"got {x.dtype}")
+            raise ValueError(f"{fn}: {name} must be float32, got {x.dtype}")
         if x.dim() != 2:
-            raise ValueError(f"ggd_output_grad_cuda: {name} must be 2-D, got "
-                             f"shape {tuple(x.shape)}")
+            raise ValueError(f"{fn}: {name} must be 2-D, got shape "
+                             f"{tuple(x.shape)}")
         if not x.is_contiguous():
-            raise ValueError(f"ggd_output_grad_cuda: {name} must be "
-                             "contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
     if out.shape != targ.shape:
-        raise ValueError(f"ggd_output_grad_cuda: out {tuple(out.shape)} and "
-                         f"targ {tuple(targ.shape)} differ in shape")
+        raise ValueError(f"{fn}: out {tuple(out.shape)} and targ "
+                         f"{tuple(targ.shape)} differ in shape")
     m, d = out.shape
     if m == 0 or d == 0:
-        raise ValueError(f"ggd_output_grad_cuda: empty bunch {(m, d)}")
+        raise ValueError(f"{fn}: empty bunch {(m, d)}")
     if m > MAX_ROWS or d > MAX_ROWS:
-        raise ValueError(f"ggd_output_grad_cuda: bunch {(m, d)} exceeds the "
-                         f"kernel's int32 rows and columns ({MAX_ROWS})")
+        raise ValueError(f"{fn}: bunch {(m, d)} exceeds the kernel's int32 "
+                         f"rows and columns ({MAX_ROWS})")
     for name, x in (("out", out), ("targ", targ)):
         if x.device.type != "cuda":
-            raise ValueError(f"ggd_output_grad_cuda: {name} must be a CUDA "
-                             f"tensor, got {x.device}")
+            raise ValueError(f"{fn}: {name} must be a CUDA tensor, got "
+                             f"{x.device}")
     if out.device != targ.device:
-        raise ValueError(f"ggd_output_grad_cuda: out on {out.device}, targ "
-                         f"on {targ.device}")
+        raise ValueError(f"{fn}: out on {out.device}, targ on {targ.device}")
+
+
+def check_sums_arg(sums: torch.Tensor, out: torch.Tensor, m_global: int
+                   ) -> None:
+    """Raise ``ValueError`` unless ``sums`` and ``m_global`` are what
+    ``ggd_grad_from_sums_cuda`` takes beside a checked ``out`` [M, D]:
+    float32 [D], contiguous, on ``out``'s device, over at least M and at
+    most ``MAX_ROWS`` rows."""
+    fn = "ggd_grad_from_sums_cuda"
+    if sums.dtype != torch.float32:
+        raise ValueError(f"{fn}: sums must be float32, got {sums.dtype}")
+    if tuple(sums.shape) != (out.shape[1],) or not sums.is_contiguous():
+        raise ValueError(f"{fn}: sums must be a contiguous [{out.shape[1]}] "
+                         f"vector, got shape {tuple(sums.shape)}")
+    if not out.shape[0] <= m_global <= MAX_ROWS:
+        raise ValueError(f"{fn}: m_global {m_global} is not between this "
+                         f"rank's {out.shape[0]} rows and {MAX_ROWS}")
+    if sums.device != out.device:
+        raise ValueError(f"{fn}: sums on {sums.device}, out on {out.device}")
 
 
 @functools.lru_cache(maxsize=8)
@@ -143,4 +200,61 @@ def ggd_output_grad_cuda(out: torch.Tensor, targ: torch.Tensor, beta: float,
     if rc != 0:
         raise RuntimeError(f"ggd_output_grad launch failed: CUDA error {rc}")
     launches += 1
+    return buf[:m], buf[m]
+
+
+def ggd_colsum_cuda(out: torch.Tensor, targ: torch.Tensor, beta: float
+                    ) -> torch.Tensor:
+    """(out, targ) [M, D] -> sum_m |out - targ|^beta [D] on the card: the
+    fused kernel's first three steps, the sums added in its order.
+
+    Launches ``ggd_colsum`` once on PyTorch's current stream without a
+    synchronise; raises on bad arguments or a refused launch.
+    """
+    global colsum_launches
+    from tpu_se_torch.ops._build import load_library
+
+    check_ggd_args(out, targ, "ggd_colsum_cuda")
+    m, d = out.shape
+    sums = torch.empty(d, dtype=torch.float32, device=out.device)
+    lib, _ = load_library()
+    with torch.cuda.device(out.device):
+        rc = lib.ggd_colsum(out.data_ptr(), targ.data_ptr(), sums.data_ptr(),
+                            m, d, _beta_args(beta)[0],
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ggd_colsum launch failed: CUDA error {rc}")
+    colsum_launches += 1
+    return sums
+
+
+def ggd_grad_from_sums_cuda(out: torch.Tensor, targ: torch.Tensor,
+                            sums: torch.Tensor, m_global: int, beta: float
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (out, targ) [M, D] and the bunch's column sums [D] over
+    ``m_global`` rows -> (dedx [M, D] including 1 / m_global, alpha [D])
+    on the card: the fused kernel's alpha arithmetic and gradient step.
+
+    Launches ``ggd_grad_from_sums`` once on PyTorch's current stream without
+    a synchronise; raises on bad arguments or a refused launch.  Both
+    outputs are views of one allocation.
+    """
+    global grad_from_sums_launches
+    from tpu_se_torch.ops._build import load_library
+
+    check_ggd_args(out, targ, "ggd_grad_from_sums_cuda")
+    check_sums_arg(sums, out, m_global)
+    m, d = out.shape
+    buf = torch.empty((m + 1, d), dtype=torch.float32, device=out.device)
+    lib, _ = load_library()
+    base = buf.data_ptr()
+    with torch.cuda.device(out.device):
+        rc = lib.ggd_grad_from_sums(
+            out.data_ptr(), targ.data_ptr(), sums.data_ptr(), base,
+            base + 4 * m * d, m, d, m_global, *_beta_args(beta),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ggd_grad_from_sums launch failed: CUDA error "
+                           f"{rc}")
+    grad_from_sums_launches += 1
     return buf[:m], buf[m]

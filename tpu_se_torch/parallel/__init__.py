@@ -1,0 +1,16 @@
+"""Data-parallel training over ``torch.distributed``: the port of
+``tpu_se.parallel`` (NCCL between cards, gloo between CPU ranks)."""
+
+from tpu_se_torch.parallel.distributed import (
+    allgather_host_rows, allgather_rows, initialize_distributed,
+    shutdown_distributed, sync_processes,
+)
+from tpu_se_torch.parallel.mesh import (
+    Mesh, MeshConfig, launch_local_ranks, make_mesh, shard_train_args,
+)
+
+__all__ = [
+    "MeshConfig", "Mesh", "make_mesh", "shard_train_args",
+    "launch_local_ranks", "initialize_distributed", "shutdown_distributed",
+    "allgather_rows", "allgather_host_rows", "sync_processes",
+]

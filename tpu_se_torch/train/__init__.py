@@ -1,5 +1,6 @@
 """Training: the ML-GGD / beta-norm step, optimizer, checkpoints and the
-epoch loop -- the port of ``tpu_se.train`` for one device."""
+epoch loop -- the port of ``tpu_se.train``, for one device or, with
+``tpu_se_torch.parallel``, a data mesh of them."""
 
 from tpu_se_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpu_se_torch.train.loop import (

@@ -1,6 +1,7 @@
 """The epoch loop: the ``finetune.pl`` + ``BPtrain.cc`` equivalent.
 
-Port of ``tpu_se/train/loop.py`` for one device.  Epoch protocol
+Port of ``tpu_se/train/loop.py``, for one device or a data mesh of them
+(one process per device, ``tpu_se_torch.parallel``).  Epoch protocol
 (``finetune.pl:10-155``, ``BPtrain.cc:55-146``):
 
 - epoch N trains from epoch N-1's weights; lr constant for epochs 1..10,
@@ -14,6 +15,14 @@ Port of ``tpu_se/train/loop.py`` for one device.  Epoch protocol
 
 The shuffles come from the same ``np.random.Generator`` draws as in
 ``tpu_se``, so both packages train on the same bunches in the same order.
+
+Data parallel (``TrainConfig.coordinator`` or ``TrainConfig.mesh``): every
+rank runs the same schedule and draws the same shuffles; a rank trains its
+M / P rows of every bunch (``train_chunk(mesh=)``), reads 1 / P of the
+resident span from storage, and runs the whole CV.  Only rank 0 writes
+``.wts``, partial checkpoints and logs; a barrier after each epoch keeps
+resume-by-existence consistent on shared storage, and there the ranks
+compare their weights and raise if the replicas have drifted apart.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import json
 import math
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -33,6 +42,15 @@ from tpu_se_torch.io import atomic_write
 from tpu_se_torch.losses import ref_gamma
 from tpu_se_torch.models import (
     DEFAULT_LAYERSIZES, init_params, init_params_uniform, params_from_numpy,
+)
+from tpu_se_torch.ops import ggd_kernel
+from tpu_se_torch.parallel import (
+    Mesh, MeshConfig, initialize_distributed, launch_local_ranks, make_mesh,
+    shard_train_args, shutdown_distributed, sync_processes,
+)
+from tpu_se_torch.parallel.distributed import allgather_rows
+from tpu_se_torch.parallel.mesh import (
+    MODEL_AXIS_MESSAGE, check_mesh_devices, free_port,
 )
 from tpu_se_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpu_se_torch.train.step import (
@@ -46,9 +64,16 @@ CV_BATCH = 4096
 @dataclass
 class TrainConfig:
     """The reference's config keys (``Interface.cc:150-315``) plus the
-    framework's knobs, as ``tpu_se.train.TrainConfig`` has them (without
-    its multi-host fields).  Checkpoints and ``.wts`` files are float32
-    whatever ``compute_dtype`` says."""
+    framework's knobs, as ``tpu_se.train.TrainConfig`` has them.
+    Checkpoints and ``.wts`` files are float32 whatever ``compute_dtype``
+    says.
+
+    Data parallel, one process per device.  Set ``coordinator``
+    (``"host:port"`` of rank 0), ``num_processes`` and ``process_id`` on
+    every rank to join a ``torch.distributed`` group: NCCL for a CUDA
+    device, gloo for the CPU, gloo for both with
+    ``cpu_collectives="gloo"``.  Or set ``mesh=MeshConfig(data=N)`` alone
+    and ``run_training`` starts the N ranks of this host itself."""
 
     fea_file: str = ""
     targ_file: str = ""
@@ -86,6 +111,11 @@ class TrainConfig:
     device_resident: str = "auto"    # "auto" | "always" | "never"
     device_resident_max_bytes: int = 4 << 30
     checkpoint_every_chunks: int = 0  # >0: mid-epoch partial checkpoints
+    mesh: MeshConfig | None = None   # requested mesh shape
+    coordinator: str = ""
+    num_processes: int | None = None
+    process_id: int | None = None
+    cpu_collectives: str = ""
 
     def hyper(self) -> TrainHyper:
         return TrainHyper(
@@ -115,13 +145,31 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-def load_device_frames(dataset: PfilePairDataset, device
+def load_device_frames(dataset: PfilePairDataset, device,
+                       mesh: Mesh | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Upload a dataset's normalized frame span to ``device`` (once per
     job): ``train_one_epoch(device_frames=...)`` then moves only window
-    starts."""
+    starts.
+
+    Under a mesh of several ranks each rank reads only its
+    ``shard_for_host`` rows from storage and the span is reassembled by an
+    all-gather, byte-identical to the unsharded read: under NCCL on the
+    card (the shard is uploaded and gathered where the span is needed),
+    under gloo on the host, before the upload.
+    """
     device = torch.device(device)
-    noisy, clean = dataset.load_span_normalized()
+    if mesh is None or mesh.size == 1:
+        noisy, clean = dataset.load_span_normalized()
+    elif mesh.backend == "nccl":
+        lo, hi = dataset.frame_span()
+        return tuple(
+            allgather_rows(to_device(rows, device), hi - lo, mesh.rank,
+                           mesh.size)
+            for rows in dataset.load_span_shard(mesh.rank, mesh.size))
+    else:
+        noisy, clean = dataset.load_span_normalized(
+            process_shard=(mesh.rank, mesh.size))
     return to_device(noisy, device), to_device(clean, device)
 
 
@@ -139,7 +187,7 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
                     hyper: TrainHyper, lr: float, rng: np.random.Generator,
                     device, device_frames=None, log=print,
                     start_chunk: int = 0, ckpt_every: int = 0,
-                    ckpt_cb=None) -> TrainState:
+                    ckpt_cb=None, mesh: Mesh | None = None) -> TrainState:
     """One epoch over the dataset's chunks on ``device``.
 
     With ``device_frames`` (from ``load_device_frames``) the frames stay on
@@ -147,7 +195,8 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
     without, each chunk's frames are uploaded with them.  ``start_chunk``
     resumes mid-epoch: the skipped chunks' rng draws are replayed (not
     trained).  With ``ckpt_every`` > 0, ``ckpt_cb(state, chunks_done)``
-    fires after every N trained chunks.
+    fires after every N trained chunks.  With ``mesh`` every rank walks the
+    same chunks and shuffles and trains its columns of each bunch.
     """
     device = torch.device(device)
     n_chunks = dataset.n_chunks
@@ -164,9 +213,12 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
         starts = starts[: n_bunches * m].reshape(n_bunches, m)
         gen = (dropout_generator(dropout_seed, i, device)
                if dropout_seed is not None else None)
+        if mesh is not None:
+            noisy, clean, starts = shard_train_args(mesh, noisy, clean,
+                                                    starts)
         train_chunk(state, noisy, clean,
                     to_device(starts.astype(np.int64), device), lr, hyper,
-                    generator=gen)
+                    generator=gen, mesh=mesh)
         log(f"  chunk {i+1}/{n_chunks}: {n_bunches} bunches{tag}")
         if ckpt_every and ckpt_cb is not None and (i + 1) % ckpt_every == 0:
             ckpt_cb(state, i + 1)
@@ -240,11 +292,78 @@ def _initial_state(cfg: TrainConfig, device) -> TrainState:
                                               activation=cfg.activation))
 
 
+class _SilentEpochLogger:
+    """``EpochLogger`` stand-in for the ranks that write no files."""
+
+    def __call__(self, line: str) -> None:
+        pass
+
+    def config(self, cfg) -> None:
+        pass
+
+    def finish(self, metrics: dict) -> None:
+        pass
+
+
+def _local_rank(rank: int, cfg: TrainConfig, device_name: str,
+                port: int) -> None:
+    """One rank of a one-host mesh, in its own spawned process."""
+    cfg = replace(cfg, coordinator=f"127.0.0.1:{port}",
+                  num_processes=cfg.mesh.data, process_id=rank)
+    run_training(cfg, device_name,
+                 log=print if rank == 0 else lambda line: None)
+
+
+def _run_local_mesh(cfg: TrainConfig, device: torch.device, log) -> str:
+    """``mesh=MeshConfig(data=N)`` without a coordinator: start the N ranks
+    of this host (rank k on card k, or N CPU ranks) and wait for them.
+    Rank 0 prints the run's lines; the others stay quiet."""
+    if device.type == "cuda":
+        check_mesh_devices(cfg.mesh.data, cfg.mesh.model,
+                           torch.cuda.device_count())
+    log(f"data mesh: starting {cfg.mesh.data} local ranks on {device.type}")
+    launch_local_ranks(_local_rank, cfg.mesh.data,
+                       (cfg, device.type, free_port()))
+    return os.path.join(cfg.out_dir, f"mlp.{cfg.epochs}.wts")
+
+
 def run_training(cfg: TrainConfig, device, log=print) -> str:
     """Run the full multi-epoch schedule on ``device``; returns the final
     .wts path.  ``device`` is ``"cuda"`` or ``"cpu"`` (``resolve_device``:
-    a CUDA request without a card raises)."""
+    a CUDA request without a card raises).
+
+    With ``cfg.coordinator`` this process is one rank of a data mesh (see
+    ``TrainConfig``); it leaves the process group when the schedule ends,
+    also on an exception.  With ``cfg.mesh`` alone the ranks are started
+    here.  A mesh of one rank still takes the data-parallel step (the
+    split GGD kernel and the collectives), with one device's bits."""
     device = resolve_device(device)
+    if cfg.mesh is not None and cfg.mesh.model > 1:
+        raise NotImplementedError(MODEL_AXIS_MESSAGE)
+    if not cfg.coordinator:
+        if cfg.mesh is not None and cfg.mesh.data > 1:
+            return _run_local_mesh(cfg, device, log)
+        return _run_schedule(cfg, device, None, log)
+    info = initialize_distributed(
+        cfg.coordinator, cfg.num_processes, cfg.process_id,
+        cfg.cpu_collectives or None, device)
+    try:
+        mesh = make_mesh(cfg.mesh.data if cfg.mesh is not None else None, 1,
+                         info["device"])
+        log(f"data mesh: data={mesh.size}, rank {mesh.rank} on "
+            f"{mesh.device} ({mesh.backend})")
+        return _run_schedule(cfg, mesh.device, mesh, log)
+    finally:
+        shutdown_distributed()
+
+
+def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
+                  log) -> str:
+    is_main = mesh is None or mesh.rank == 0
+    replica_checks = 0
+    if mesh is not None and cfg.bunchsize % mesh.size != 0:
+        raise ValueError(f"bunchsize {cfg.bunchsize} does not split evenly "
+                         f"over {mesh.size} ranks")
     os.makedirs(cfg.out_dir, exist_ok=True)
     hyper = cfg.hyper()
 
@@ -261,7 +380,7 @@ def run_training(cfg: TrainConfig, device, log=print) -> str:
         if (cfg.device_resident == "auto"
                 and ds.span_bytes() > cfg.device_resident_max_bytes):
             return None
-        return load_device_frames(ds, device)
+        return load_device_frames(ds, device, mesh)
 
     train_frames = resident(dataset)
     cv_frames = resident(cv_dataset)
@@ -315,6 +434,8 @@ def run_training(cfg: TrainConfig, device, log=print) -> str:
 
         def save_partial(st, chunks_done, _epoch=epoch, _stem=partial_stem,
                          _mp=meta_path):
+            if not is_main:
+                return
             pp = f"{_stem}.{chunks_done}.wts"
             save_checkpoint(pp, st)
             atomic_write(_mp, lambda f: json.dump(
@@ -327,7 +448,8 @@ def run_training(cfg: TrainConfig, device, log=print) -> str:
 
         lr = cfg.lr_for_epoch(epoch)
         rng = np.random.default_rng(cfg.seed_for_epoch(epoch))
-        elog = EpochLogger(cfg.out_dir, epoch)
+        elog = (EpochLogger(cfg.out_dir, epoch) if is_main
+                else _SilentEpochLogger())
         elog(f"epoch {epoch} lr={lr:.6g} seed={cfg.seed_for_epoch(epoch)}")
         elog.config(cfg)
         t0 = time.time()
@@ -335,18 +457,34 @@ def run_training(cfg: TrainConfig, device, log=print) -> str:
             state, dataset, hyper, lr, rng, device,
             device_frames=train_frames, log=elog, start_chunk=start_chunk,
             ckpt_every=cfg.checkpoint_every_chunks,
-            ckpt_cb=save_partial if cfg.checkpoint_every_chunks else None)
+            ckpt_cb=save_partial if cfg.checkpoint_every_chunks else None,
+            mesh=mesh)
         metrics = evaluate_cv(state, cv_dataset, hyper, device,
                               device_frames=cv_frames)
         dt = time.time() - t0
-        # Velocity resets each epoch under the parity schedule, so the
-        # sidecar only matters when it carries across epochs.
-        save_checkpoint(out_path, state, with_state=cfg.carry_velocity)
-        for p in partial_files():
-            os.remove(p)
+        if mesh is not None:
+            mesh.check_replicas(list(state.model.parameters()),
+                                f"at the end of epoch {epoch}")
+            replica_checks += 1
+        if is_main:
+            # Velocity resets each epoch under the parity schedule, so the
+            # sidecar only matters when it carries across epochs.
+            save_checkpoint(out_path, state, with_state=cfg.carry_velocity)
+            for p in partial_files():
+                os.remove(p)
+        # No rank starts epoch N+1 (or, resuming, looks for this epoch's
+        # .wts on shared storage) before rank 0 has written it.
+        sync_processes(f"epoch-{epoch}")
         elog.finish(metrics)
         log(f"epoch {epoch}: sq={metrics['cv_squared_error']:.1f} "
             f"abs={metrics['cv_abs_error']:.1f} "
             f"ll={metrics['cv_ggd_loglik']:.1f} ({dt:.1f}s)")
         last_path = out_path
+    if mesh is not None:
+        log(f"data mesh: rank {mesh.rank} of {mesh.size} ({mesh.backend}): "
+            f"ggd_colsum {ggd_kernel.colsum_launches} launches, "
+            f"ggd_grad_from_sums {ggd_kernel.grad_from_sums_launches} "
+            f"launches, all_reduce {mesh.all_reduce_calls} calls "
+            f"{mesh.all_reduce_bytes} bytes, replicas equal at "
+            f"{replica_checks} epoch ends")
     return last_path

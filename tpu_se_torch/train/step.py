@@ -22,6 +22,19 @@ launches on the card:
   network's output, the GGD gradient, alpha, the velocity and the weights
   stay float32.
 - Partial bunches are dropped by the caller (``starts[: n_bunches*M]``).
+- Under a data mesh (``mesh=``, one rank per device) a rank takes M / P
+  rows of every bunch.  Where GSPMD turns the reference's batch reductions
+  into psums, the port writes them out, two collectives per bunch: the GGD
+  column sums (D floats) between the split kernel's two launches, so that
+  alpha is the global bunch's, and the gradients, flattened into one
+  buffer, after the backward pass.  Both are SUMS: the reference's explicit
+  1/M (the global M) is already in the cotangent, so nothing is averaged as
+  DistributedDataParallel would.  Every rank then applies the same update
+  to its replica.  With bfloat16 products each rank rounds its partial
+  ``dW`` to bfloat16 as one device does (``_ReducedLinear``) and the
+  all-reduce adds the rounded partials in float32: the rounding falls
+  before the sum, per rank, which is how the reference's narrowed
+  all-reduce reads.
 """
 
 from __future__ import annotations
@@ -104,7 +117,8 @@ def gather_splice(frames: torch.Tensor, starts: torch.Tensor, context: int
 
 def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
                 starts: torch.Tensor, lr: float, hyper: TrainHyper,
-                generator: torch.Generator | None = None) -> TrainState:
+                generator: torch.Generator | None = None,
+                mesh=None) -> TrainState:
     """Train all full bunches of one chunk, in place; returns ``state``.
 
     noisy/clean: [F, D] normalized frames; starts: [n_bunches, M] int64
@@ -112,10 +126,25 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     float32 first, as JAX's ``jnp.float32(lr)``.  ``generator`` (on that
     device) draws the dropout masks when ``hyper.dropout`` is set.  alpha
     after the call is the last bunch's.
+
+    With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``starts`` holds this
+    rank's columns ``[n_bunches, M / mesh.size]`` (``shard_train_args``);
+    the bunch's statistic and gradients are summed over the ranks and
+    every rank ends with the same weights.  Every rank draws the whole
+    bunch's dropout masks from the same seed and keeps its rows.
+    ``mesh=None`` is the one-device step, the fused GGD kernel included.
     """
     opt_n = hyper.bunchsize if hyper.grad_scale == "parity" else 1
     lr = float(np.float32(lr))
     dropout = hyper.dropout if generator is not None else None
+    dropout_rows = None
+    if mesh is not None:
+        rows = starts.shape[1]
+        if rows * mesh.size != hyper.bunchsize:
+            raise ValueError(f"rank {mesh.rank} of {mesh.size} got {rows} "
+                             f"columns of starts for a bunch of "
+                             f"{hyper.bunchsize}")
+        dropout_rows = (mesh.rank * rows, hyper.bunchsize)
     layers = param_layers(state.model)
     params = [p for layer in layers for p in (layer["w"], layer["b"])]
     alpha = state.alpha
@@ -125,10 +154,13 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
             targ = clean[bunch + hyper.targ_offset]
             out = state.model(x, dropout=dropout, generator=generator,
                               compute_dtype=hyper.compute_dtype,
-                              act_dtype=hyper.act_dtype)
+                              act_dtype=hyper.act_dtype,
+                              dropout_rows=dropout_rows)
             dedx, alpha = output_grad_and_alpha(out.detach(), targ,
-                                                hyper.beta, hyper.ml)
+                                                hyper.beta, hyper.ml, mesh)
             grads = torch.autograd.grad(out, params, grad_outputs=dedx)
+            if mesh is not None:
+                grads = mesh.all_reduce_sum_flat(grads)
             sgd_momentum_update(
                 layers, state.velocity,
                 [{"w": gw, "b": gb} for gw, gb in zip(grads[::2], grads[1::2])],
