@@ -125,7 +125,8 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    zeros, bitwise reruns), fed their own sums bit for bit the fused
    kernel, two half-bunches' sums added against the whole bunch's alpha,
    and their device times beside their byte bounds and an empty launch;
-   one rank over NCCL (``--coordinator ... --num-processes 1``), whose
+   one rank over NCCL (``--coordinator ... --num-processes 1``), a 1x1
+   mesh whose model is a ``TensorParallelFFN``, whose
    ``mlp.2.wts`` must be byte-identical to the training phase's
    single-process run, with two split launches and two all-reduces per ML
    bunch counted; two ranks sharing the card over gloo
@@ -133,10 +134,30 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    1e-3 of the one-process card run, a second run byte-identical, the
    ranks' own end-of-epoch replica check, only rank 0's files on disk, and
    (in ``dp_epoch``) the all-gathered resident span equal to the unsharded
-   one; the refusals (``--mesh-data 2`` on one card, NCCL with two ranks on
-   one card, ``--mesh-model 2``); ms per bunch for one rank fused, one rank
-   over NCCL and two ranks over gloo, with the bytes each collective moves;
-12. prints the kernel table as JSON (each kernel's launches summed over
+   one; the refusals (``--mesh-data 2`` and ``--mesh-model 2`` on one
+   card, ``--mesh-model 3`` at a hidden width of 2048, NCCL with two ranks
+   on one card); ms per bunch for one rank fused, one rank over NCCL and
+   two ranks over gloo, with the bytes each collective moves;
+12. tensor-parallel phase, at the same fixtures, ranks as child processes
+   of ``python -m tpu_se_torch train --mesh-model 2`` sharing the card over
+   gloo at ``--lrate 0.001``: a 1 x 2 and a 2 x 2 mesh, each twice; each
+   held to the one-process card run (weight changes within 1e-3), its
+   rerun byte-identical, only rank 0's files on disk, the ranks' replica
+   and shard checks, two split GGD launches per ML bunch and rank, and the
+   collectives of each axis counted against the layout's (per bunch: the
+   data axis' two all-reduces; the model axis' two all-reduces and one
+   all-gather; per CV batch one of each; the checkpoint's gathers); ms per
+   bunch of both through ``bench/dp_epoch --mesh-model 2``;
+13. decoder-mesh phase: ``bench/mesh_decode`` as two ranks sharing the
+   card over gloo -- ``Enhancer(mesh=)`` (``enhance`` plain and with
+   ``blend="auto"``, ``enhance_batch``, ``enhance_batch_waves``) of the
+   slice phase's four utterances and ``StreamingEnhancer(mesh=)`` of 8
+   streams x 16 hops on the int16 wire -- against the same calls in one
+   process on the card: every rank's outputs equal, waves within 1 int16
+   LSB (bitwise by form reported), enhanced LPS within rtol 1e-5, atol
+   1e-5, each rank's LPS launches equal to the one process's and 16 graph
+   replays;
+14. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -185,9 +206,11 @@ from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
+from tpu_se_torch.bench.mesh_decode import decode_all  # noqa: E402
+from tpu_se_torch.parallel import MeshConfig, param_shardings  # noqa: E402
 from tpu_se_torch.parallel.mesh import free_port  # noqa: E402
 from tpu_se_torch.train import (  # noqa: E402
-    TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
+    CV_BATCH, TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
     train_chunk, train_one_epoch,
 )
 from tpu_se_torch.utils import profile_trace  # noqa: E402
@@ -207,6 +230,12 @@ GGD_BETAS = (0.5, 0.9, 1.0, 2.0)
 SPLIT_ROWS = (64, 128, 1024, 4096)
 SPLIT_BETAS = (1.0, 0.9, 2.0)
 RANKS_TIMEOUT_S = 300
+# The tensor-parallel phase: a model axis of 2, and data axes of 1 and 2.
+TP_MODEL = 2
+TP_DATA = (1, 2)
+# The decoder-mesh phase: streams and hops through StreamingEnhancer(mesh=).
+MESH_STREAMS = 8
+MESH_HOPS = 16
 # The card's published peaks (NVIDIA H100 SXM at 700 W) that the kernels'
 # bounds are stated against: device memory, and fp64 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1136,15 +1165,23 @@ def hop_profile(streamer: StreamingEnhancer, label: str) -> dict:
     """Print one step's device launches and busy time from
     ``torch.profiler`` (mean of 10 steps), grouped by ``HOP_GROUPS``, and
     the kernel that takes most of it; the step must hold exactly one LPS
-    kernel.  -> the launches, the busy us and the network's products' us."""
-    with torch.inference_mode():
-        busy, launches, kernels = device_profile(streamer._run_step, 10)
+    kernel, in one of three traces (a step launches the same kernels every
+    time, so a fault of the step shows in every trace, a lost record in one).
+    -> the launches, the busy us and the network's products' us."""
+    for _ in range(3):
+        with torch.inference_mode():
+            busy, launches, kernels = device_profile(streamer._run_step, 10,
+                                                     whole=True)
+        lps = sum(n for name, _, n in kernels if "lps_kernel" in name)
+        if lps == 1:
+            break
+        print(f"stream  {label}: a trace with {lps:.1f} LPS kernels per hop; "
+              f"profiled again")
     groups = dict.fromkeys([g for g, _ in HOP_GROUPS] + ["elementwise"], 0.0)
     for name, us, _ in kernels:
         group = next((g for g, keys in HOP_GROUPS
                       if any(k in name for k in keys)), "elementwise")
         groups[group] += us
-    lps = sum(n for name, _, n in kernels if "lps_kernel" in name)
     top, top_us, top_n = kernels[0]
     print(f"stream  {label} (torch.profiler, 10 hops): {launches:.1f} device "
           f"launches, {lps:.1f} of them the LPS kernel; busy {busy:.1f} us: "
@@ -1824,17 +1861,23 @@ def coordinator_flags(port: int, n_ranks: int, rank: int, gloo: bool) -> list:
 
 MESH_LINE = re.compile(
     r"data mesh: rank (\d+) of (\d+) \((\w+)\): ggd_colsum (\d+) launches, "
-    r"ggd_grad_from_sums (\d+) launches, all_reduce (\d+) calls (\d+) bytes, "
-    r"replicas equal at (\d+) epoch ends")
+    r"ggd_grad_from_sums (\d+) launches, data axis all_reduce (\d+) calls "
+    r"(\d+) bytes all_gather (\d+) calls (\d+) bytes; model axis all_reduce "
+    r"(\d+) calls (\d+) bytes all_gather (\d+) calls (\d+) bytes, replicas "
+    r"equal at (\d+) epoch ends")
 
 
 def mesh_summary(output: str, label: str) -> dict:
-    """The numbers of a rank's closing ``data mesh:`` line."""
+    """The numbers of a rank's closing ``data mesh:`` line: its split GGD
+    launches and what its collectives moved over each axis (``calls`` and
+    ``bytes`` are the data axis' all-reduces)."""
     found = MESH_LINE.search(output)
     if not found:
         raise SystemExit(f"{label}: no closing 'data mesh:' line in\n{output}")
     keys = ("rank", "ranks", "backend", "colsum", "from_sums", "calls",
-            "bytes", "replica_checks")
+            "bytes", "data_gathers", "data_gather_bytes", "model_calls",
+            "model_bytes", "model_gathers", "model_gather_bytes",
+            "replica_checks")
     return {k: v if k == "backend" else int(v)
             for k, v in zip(keys, found.groups())}
 
@@ -1880,19 +1923,29 @@ def dp_train_runs(root: str, train: dict) -> dict:
                 *coordinator_flags(port, 2, k, False)),
                 log(f"refused_nccl.{k}")) for k in (0, 1)],
             "NCCL needs one card per rank"),
-        "--mesh-model 2": (
+        "--mesh-model 2 on one card": (
             [start_rank(train_rank_argv(
                 tfx, init_wts, os.path.join(root, "refused_model"),
                 "--mesh-model", "2"), log("refused_model"))],
-            "--mesh-model > 1, tensor-parallel hidden layers) is not ported"),
+            "mesh 1x2 needs 2 devices, have 1"),
+        "--mesh-model 3 (a width of 2048)": (
+            [start_rank(train_rank_argv(
+                tfx, init_wts, os.path.join(root, "refused_width"),
+                "--mesh-model", "3"), log("refused_width"))],
+            "hidden width 2048 does not split evenly over 3 ranks"),
     }
 
-    # 1 rank over NCCL: the data-parallel step with one device's bits.
+    # 1 rank over NCCL, a 1x1 mesh: the mesh's step (split GGD kernels,
+    # collectives, the model as a TensorParallelFFN with one rank on its
+    # model axis) with one device's bits.
     out = wait_ranks(nccl1, "1 rank over NCCL")[0]
     got = mesh_summary(out, "1 rank over NCCL")
     identical = same_bytes(os.path.join(root, "nccl1", "mlp.2.wts"),
                            os.path.join(root, "cuda", "mlp.2.wts"))
-    print(f"dp      1 rank over NCCL: ggd_colsum {got['colsum']} and "
+    if "data mesh: data=1, model=1, rank 0 on cuda:0 (nccl)" not in out:
+        raise SystemExit(f"1 rank over NCCL: no 1x1 mesh line in\n{out}")
+    print(f"dp      1 rank over NCCL (1x1 mesh, TensorParallelFFN): "
+          f"ggd_colsum {got['colsum']} and "
           f"ggd_grad_from_sums {got['from_sums']} launches for {bunches} ML "
           f"bunches, all_reduce {got['calls']} calls {got['bytes']} bytes, "
           f"replicas checked at {got['replica_checks']} epoch ends; mlp.2.wts "
@@ -2019,6 +2072,247 @@ def dp_phase(dev, root: str, train: dict) -> dict:
     return split
 
 
+def cv_batches(tfx: dict) -> int:
+    """CV batches one epoch's CV takes (each runs the sharded forward)."""
+    lo, hi = (int(x) for x in tfx["cv_sents"].split("-"))
+    ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"], (lo, hi),
+                          tfx["traincache"])
+    return sum(-(-len(ds.chunk_starts(ci)) // CV_BATCH)
+               for ci in range(ds.n_chunks))
+
+
+def shard_floats(init_wts: str, model: int) -> tuple[int, int]:
+    """-> (floats of one rank's parameters on a model axis of ``model``
+    ranks: its gradients, all-reduced over the data axis in one buffer;
+    the tensors that are split, each gathered when rank 0 writes)."""
+    layers = read_wts(init_wts)
+    specs = param_shardings(MeshConfig(1, model), len(layers))
+    split = [(layer[k].size, "model" in spec[k])
+             for layer, spec in zip(layers, specs) for k in ("w", "b")]
+    return (sum(n // model if cut else n for n, cut in split),
+            sum(cut for _, cut in split))
+
+
+def tp_train_runs(root: str, train: dict) -> dict:
+    """``--mesh-data 1 --mesh-model 2`` and ``--mesh-data 2 --mesh-model 2``,
+    ranks sharing the card over gloo at AGREE_LRATE, each twice, all as
+    child processes started together.  -> the split kernels' launches."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    bunches = ml_bunches(tfx) * EPOCHS
+    cv = cv_batches(tfx) * EPOCHS
+    floats, n_split = shard_floats(init_wts, TP_MODEL)
+    runs = {}
+    for data in TP_DATA:
+        n = data * TP_MODEL
+        for again in ("", "_again"):
+            name = f"tp{data}x{TP_MODEL}{again}"
+            port = free_port()
+            runs[name] = (data, [start_rank(train_rank_argv(
+                tfx, init_wts, os.path.join(root, name), "--lrate",
+                AGREE_LRATE, "--mesh-model", str(TP_MODEL),
+                *coordinator_flags(port, n, k, True)),
+                os.path.join(root, f"{name}.{k}.log")) for k in range(n)])
+    launches = {"colsum": 0, "from_sums": 0}
+    w0 = read_wts(init_wts)
+    w_one = read_wts(os.path.join(root, "cuda_lr", "mlp.2.wts"))
+    for name, (data, ranks) in runs.items():
+        outs = wait_ranks(ranks, name)
+        for k, text in enumerate(outs):
+            got = mesh_summary(text, f"{name} rank {k}")
+            # Per bunch: the data axis sums the GGD column sums and the
+            # gradients (2 x 2 only); the model axis sums layer 1's partial
+            # z and layer 2's input gradient and gathers layer 2's columns;
+            # each CV batch runs the sharded forward (1 sum, 1 gather), and
+            # at each epoch's end the ranks of data index 0 gather every
+            # split tensor for rank 0 to write.
+            want = {"colsum": bunches, "from_sums": bunches,
+                    "calls": 2 * bunches if data > 1 else 0,
+                    "bytes": bunches * 4 * (257 + floats) if data > 1 else 0,
+                    "model_calls": 2 * bunches + cv,
+                    "model_gathers": bunches + cv + (
+                        n_split * EPOCHS if k < TP_MODEL else 0),
+                    "data_gathers": 0, "replica_checks": EPOCHS,
+                    "ranks": data * TP_MODEL, "rank": k, "backend": "gloo"}
+            wrong = {key: (got[key], v) for key, v in want.items()
+                     if got[key] != v}
+            if wrong:
+                raise SystemExit(f"{name} rank {k}: (got, wanted) {wrong}")
+            launches["colsum"] += got["colsum"]
+            launches["from_sums"] += got["from_sums"]
+            if k == 0:
+                print(f"tp      {name}: per bunch and rank, data axis "
+                      f"{got['calls'] / bunches:.0f} all-reduces "
+                      f"{got['bytes'] / bunches:.0f} bytes; model axis "
+                      f"(training and {cv} CV batches) {got['model_calls']} "
+                      f"all-reduces {got['model_bytes']} bytes, "
+                      f"{got['model_gathers']} all-gathers "
+                      f"{got['model_gather_bytes']} bytes in all; "
+                      f"{got['colsum']} + {got['from_sums']} split GGD "
+                      f"launches for {bunches} ML bunches")
+        files = sorted(os.listdir(os.path.join(root, name)))
+        if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
+                     "mlp.2.wts"]:
+            raise SystemExit(f"{name}: files on disk {files}: not rank 0's "
+                             "alone")
+        if name.endswith("_again"):
+            first = name[:-len("_again")]
+            again = same_bytes(os.path.join(root, first, "mlp.2.wts"),
+                               os.path.join(root, name, "mlp.2.wts"))
+            worst = 0.0
+            w_tp = read_wts(os.path.join(root, first, "mlp.2.wts"))
+            for a, one, tp in zip(w0, w_one, w_tp):
+                for key in ("w", "b"):
+                    d_one = one[key].astype(np.float64) - a[key]
+                    d_tp = tp[key].astype(np.float64) - a[key]
+                    worst = max(worst, np.linalg.norm(d_tp - d_one)
+                                / np.linalg.norm(d_one))
+            print(f"tp      {first}: replicas and shards equal at {EPOCHS} "
+                  f"epoch ends on every rank, only rank 0's files, rerun "
+                  f"byte-identical = {again}, weight changes within "
+                  f"{worst:.3e} of the one-process card run at lrate "
+                  f"{AGREE_LRATE}")
+            if not (again and worst <= TRAIN_DW_RTOL):
+                raise SystemExit(f"{first}: rerun identical {again}, weight "
+                                 f"changes {worst:.3e} from one process")
+    return launches
+
+
+def tp_epoch_times(root: str, train: dict) -> None:
+    """ms per bunch at 1 x 2 and 2 x 2 over gloo on the one card
+    (``bench/dp_epoch.py --mesh-model 2``), one cluster at a time."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    base = ["-m", "tpu_se_torch.bench.dp_epoch", "--fea-file", tfx["noisy"],
+            "--targ-file", tfx["clean"], "--norm-file", tfx["norm"],
+            "--init-wts", init_wts, "--train-sents", tfx["train_sents"],
+            "--traincache", str(tfx["traincache"]), "--device", "cuda",
+            "--mesh-model", str(TP_MODEL)]
+    for data in TP_DATA:
+        n = data * TP_MODEL
+        port = free_port()
+        ranks = [start_rank(base + coordinator_flags(port, n, k, True),
+                            os.path.join(root, f"tp_epoch.{n}.{k}.log"))
+                 for k in range(n)]
+        for text in wait_ranks(ranks, f"dp_epoch {data}x{TP_MODEL}"):
+            r = json.loads(text.strip().splitlines()[-1])
+            b = r["bunches"]
+            print(f"tp      {data}x{TP_MODEL} over gloo, rank {r['rank']}: "
+                  f"{r['ms_per_bunch']:.3f} ms per bunch over {b} bunches "
+                  f"of {r['rows_per_rank']} rows per rank; per bunch data "
+                  f"axis {r['data_all_reduce_calls'] / b:.0f} all-reduces "
+                  f"{r['data_all_reduce_bytes'] / b:.0f} bytes, model axis "
+                  f"{r['model_all_reduce_calls'] / b:.0f} all-reduces "
+                  f"{r['model_all_reduce_bytes'] / b:.0f} bytes and "
+                  f"{r['model_all_gather_calls'] / b:.0f} all-gathers "
+                  f"{r['model_all_gather_bytes'] / b:.0f} bytes; split "
+                  f"launches {r['ggd_colsum_launches']} + "
+                  f"{r['ggd_grad_from_sums_launches']}; gathered span equal "
+                  f"= {r['span_equal']}")
+            if not (r["span_equal"] and r["ggd_colsum_launches"] == b
+                    and r["model_all_gather_calls"] == b):
+                raise SystemExit(f"dp_epoch {data}x{TP_MODEL}: {r}")
+
+
+def tp_phase(root: str, train: dict) -> dict:
+    """-> the split kernels' launches on the tensor-parallel paths."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    os.symlink(os.path.join(os.path.dirname(root), "cuda_lr"),
+               os.path.join(root, "cuda_lr"))
+    launches = tp_train_runs(root, train)
+    tp_epoch_times(root, train)
+    print(f"tp      tensor-parallel phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def mesh_decode_phase(root: str, fx: dict) -> int:
+    """``Enhancer(mesh=)`` and ``StreamingEnhancer(mesh=)`` on two ranks
+    sharing the card over gloo (``bench/mesh_decode.py``) against the
+    card's one-process decode of the same waves and hops.  -> LPS kernel
+    launches on these paths."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    problem = {"waves": np.concatenate(fx["waves"]),
+               "lengths": np.array([len(w) for w in fx["waves"]]),
+               "hops": stream_hops(fx["waves"], MESH_STREAMS, MESH_HOPS)}
+    path = os.path.join(root, "problem.npz")
+    np.savez(path, **problem)
+    port = free_port()
+    ranks = [start_rank(
+        ["-m", "tpu_se_torch.bench.mesh_decode", "--wts", fx["wts"],
+         "--norm", fx["norm"], "--problem", path, "--out", root,
+         "--device", "cuda", *coordinator_flags(port, 2, k, True)],
+        os.path.join(root, f"mesh_decode.{k}.log")) for k in (0, 1)]
+    lps_kernel.launches = 0
+    streaming.hops_replayed = 0
+    one = decode_all(fx["wts"], fx["norm"], problem, None, "cuda")
+    torch.cuda.synchronize()
+    one_launches = lps_kernel.launches
+    outs = wait_ranks(ranks, "2 decoder ranks over gloo")
+    launches = one_launches
+    worst_lsb = worst_lps = 0.0
+    bitwise = {}
+    got = [dict(np.load(os.path.join(root, f"mesh_decode.{k}.npz")))
+           for k in (0, 1)]
+    for k, text in enumerate(outs):
+        r = json.loads(text.strip().splitlines()[-1])
+        if (r["lps_launches"], r["hops_replayed"]) != (one_launches,
+                                                        MESH_HOPS):
+            raise SystemExit(f"decoder rank {k}: {r}, wanted "
+                             f"{one_launches} LPS launches (the one-process "
+                             f"decode's) and {MESH_HOPS} replays")
+        launches += r["lps_launches"]
+    for key, want in one.items():
+        if not np.array_equal(got[1][key], got[0][key]):
+            raise SystemExit(f"decoder ranks return different {key}")
+        mine = got[0][key]
+        form = key.rstrip("0123456789").replace("_wave", "").replace(
+            "_lps", "")
+        if mine.dtype == np.int16:
+            lsb = wrapped_lsb(mine, want)
+            worst_lsb = max(worst_lsb, lsb)
+            bitwise[form] = bitwise.get(form, True) and np.array_equal(
+                mine, want)
+            if lsb > 1:
+                raise SystemExit(f"decoder mesh {key}: {lsb} LSB from the "
+                                 "one-process card decode")
+        elif mine.dtype == bool:
+            if not np.array_equal(mine, want):
+                raise SystemExit(f"decoder mesh {key} differs")
+        else:
+            worst_lps = max(worst_lps, float(np.abs(mine - want).max()))
+            if not np.allclose(mine, want, rtol=1e-5, atol=1e-5):
+                raise SystemExit(f"decoder mesh {key}: LPS "
+                                 f"{np.abs(mine - want).max():.3e} from the "
+                                 "one-process card decode")
+    # Where a form is not bitwise: one process given rank 0's rows of the
+    # fast path's padded batch alone computes rank 0's bits, so the
+    # difference is the row count of the products, not the mesh.
+    batch, n_valid, _ = pad_batch(fx["waves"], "cuda")
+    per = -(-len(fx["waves"]) // 2)
+    enh = Enhancer(fx["wts"], fx["norm"], device="cuda")
+    block = enh.decode_waves_tensor(batch[:per], n_valid[:per]).cpu().numpy()
+    tail = enh.frame_length - enh.frame_shift
+    same_block = all(np.array_equal(
+        block[i, :int(n_valid[i]) * enh.frame_shift + tail],
+        got[0][f"fast_wave{i}"]) for i in range(per))
+    if not same_block:
+        raise SystemExit("one process on rank 0's rows of the fast path's "
+                         "batch does not compute rank 0's bits")
+    print(f"mesh    one process given rank 0's {per} rows of the fast path's "
+          f"batch alone: bitwise rank 0's waves = {same_block}")
+    print(f"mesh    2 ranks over gloo on one card: Enhancer(mesh=) enhance "
+          f"(plain, blend auto), enhance_batch, enhance_batch_waves of "
+          f"{len(fx['waves'])} utterances, StreamingEnhancer(mesh=) of "
+          f"{MESH_STREAMS} streams x {MESH_HOPS} hops (int16 wire); every "
+          f"rank returns the same; against the one-process card decode: "
+          f"waves within {worst_lsb:.0f} LSB (bitwise by form: {bitwise}), "
+          f"enhanced LPS within {worst_lps:.3e}; LPS launches "
+          f"{one_launches} per rank and in one process, {MESH_HOPS} replays "
+          f"per rank; wall time {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2053,6 +2347,8 @@ def main() -> int:
         bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
                           fp32_hops)
         dp = dp_phase(dev, os.path.join(root, "dp"), train)
+        tp = tp_phase(os.path.join(root, "tp"), train)
+        mesh_lps = mesh_decode_phase(os.path.join(root, "mesh"), fx)
 
     # Launches: over the decode, streaming (graph replays included),
     # pipeline and bfloat16 paths; over the training, pipeline and bfloat16
@@ -2067,7 +2363,7 @@ def main() -> int:
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": (launches + stream_launches + pipe["lps_launches"]
-                     + bf16["lps_launches"]),
+                     + bf16["lps_launches"] + mesh_lps),
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
@@ -2080,13 +2376,13 @@ def main() -> int:
         "name": "ggd_colsum", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": dp["launches"]["colsum"],
+        "launches": dp["launches"]["colsum"] + tp["colsum"],
         "max_abs_err": dp["max_abs_err"]["colsum"],
         **dp["times"][BUNCH]["colsum"], "library_ms": None}, {
         "name": "ggd_grad_from_sums", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": dp["launches"]["from_sums"],
+        "launches": dp["launches"]["from_sums"] + tp["from_sums"],
         "max_abs_err": dp["max_abs_err"]["from_sums"],
         **dp["times"][BUNCH]["from_sums"], "library_ms": None}]}))
     print(f"card    {card}")

@@ -21,10 +21,12 @@
   cotangent to bfloat16, and weights that differ in their last digits
   round to neighbouring bfloat16 values; ``tests/test_torch_train.py``),
   the CV log values within rtol 1e-4.
-- Settings the port does not run stop it: ``compute_dtype=float16``,
-  ``mesh_model`` > 1, a ``mesh_data`` that does not divide the bunch, a bad
-  ``device`` or ``device_resident``, and ``device=cuda`` without a card
-  (``mesh_data=2`` runs: ``tests/test_torch_distributed.py``).
+- Settings the port does not run stop it: ``compute_dtype=float16``, a
+  ``mesh_model`` that does not divide a hidden width, a ``mesh_data`` that
+  does not divide the bunch, a bad ``device`` or ``device_resident``, and
+  ``device=cuda`` without a card (``mesh_data=2`` runs:
+  ``tests/test_torch_distributed.py``; ``mesh_model=2``:
+  ``tests/test_torch_tensor_parallel.py``).
 
 Fixtures are written with the ``tpu_se.io`` writers inside the tests.
 """
@@ -299,7 +301,7 @@ def test_random_init_path_matches_tpu_se(pair, tmp_path):
     (["compute_dtype=float16"], SystemExit,
      "compute_dtype=float16 is not float32 or bfloat16"),
     (["mesh_data=3"], SystemExit, "mesh_data=3"),
-    (["mesh_model=2"], SystemExit, "mesh_model=2"),
+    (["mesh_model=3"], SystemExit, "hidden width 64 .*mesh_model=3"),
     (["device_resident=sometimes"], SystemExit, "device_resident"),
     (["outwts_file="], SystemExit, "outwts_file= is required"),
     (["device=meta"], ValueError, "unsupported device"),

@@ -7,6 +7,16 @@ flip a truncation); enhanced LPS within atol 1e-3 (the port's LPS sums in
 float64, JAX's in float32, ~2e-4 apart on near-empty bins, then the FFN
 and blend); info.txt SegSNR/LSD within 1e-3.
 
+Under a data mesh (``Enhancer(mesh=)``, two gloo ranks of
+``tests/torch_mp_worker.py``, the twins of ``tests/test_parallel.py:116-219``)
+every rank returns the same; against the port's one process the waves are
+within 1 LSB and the int16 fast path bitwise, as the reference holds its
+sharded decode to its own one device, and the enhanced LPS within rtol
+1e-5, atol 1e-5 (a rank's products have fewer rows; measured 4.4e-6);
+against ``tpu_se``'s ``Enhancer`` under ``make_mesh(2, 1)`` the waves are
+within 1 LSB and the LPS within the same 1e-5.  ``decode --mesh-data 2``
+writes one process's files, from rank 0 alone.
+
 ``compute_dtype=bfloat16`` decodes are compared by their enhanced LPS.  On
 the SAME noisy LPS (``enhance_lps``) the two packages differ only in the
 order of their float32 sums, which can round a hidden activation to the
@@ -33,6 +43,9 @@ from tpu_se.infer import Enhancer as JaxEnhancer
 from tpu_se.infer import decode_files as jax_decode_files
 from tpu_se.io import read_wav, write_norm, write_wav, write_wts
 from tpu_se.io import read_norm, read_wts
+from torch_mp_worker import run_decode_cluster, write_decode_problem
+from tpu_se.parallel import make_mesh as ref_make_mesh
+from tpu_se_torch.bench.mesh_decode import decode_all
 from tpu_se_torch.cli.main import build_parser
 from tpu_se_torch.cli.main import main as cli_main
 from tpu_se_torch.dsp.analysis import rate_config, wav_to_lps
@@ -340,9 +353,14 @@ def test_cpu_decode_never_launches_the_kernel(fx):
 
 @pytest.mark.parametrize("flag", [["--mesh-data", "2"]])
 def test_cli_rejects_unported_options(flag):
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["decode", "a.wav", "--wts", "m.wts",
-                                   "--norm", "m.norm", *flag])
+    """``--mesh-data`` was the last flag of the reference's ``decode``
+    that the parser refused; it parses now, and asks for as many cards."""
+    argv = ["decode", "a.wav", "--wts", "m.wts", "--norm", "m.norm"]
+    assert build_parser().parse_args(argv + flag).mesh_data == 2
+    assert build_parser().parse_args(argv).mesh_data == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli_main(argv + flag)
 
 
 def test_trunc_int16_wraps_like_numpy():
@@ -350,3 +368,90 @@ def test_trunc_int16_wraps_like_numpy():
                   -40000.7, 70000.0, -70000.0], np.float32)
     np.testing.assert_array_equal(trunc_int16(torch.from_numpy(x)).numpy(),
                                   np.trunc(x).astype(np.int16))
+
+
+@pytest.fixture(scope="module")
+def mesh_decode(tmp_path_factory):
+    """The decoder forms over two gloo ranks, and over one process."""
+    where = tmp_path_factory.mktemp("mesh_decode")
+    problem = write_decode_problem(where)
+    ranks = run_decode_cluster(where, 2)
+    one = decode_all(str(where / "m.wts"), str(where / "m.norm"), problem,
+                     None, "cpu")
+    waves = np.split(problem["waves"], np.cumsum(problem["lengths"])[:-1])
+    return where, waves, ranks, one
+
+
+MESH_FORMS = ["plain", "auto", "batch", "fast"]
+
+
+@pytest.mark.parametrize("form", MESH_FORMS)
+def test_sharded_decode_matches_one_process(mesh_decode, form):
+    _, waves, ranks, one = mesh_decode
+    keys = sorted(k for k in one if k.startswith(f"{form}_"))
+    assert len(keys) == (3 if form == "fast" else 6)
+    for key in keys:
+        for rank in ranks[1:]:
+            np.testing.assert_array_equal(rank[key], ranks[0][key])
+        got, want = ranks[0][key], one[key]
+        if "_wave" in key and form == "fast":
+            np.testing.assert_array_equal(got, want)
+        elif "_wave" in key:
+            assert _lsb(got, want) <= 1, key
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", MESH_FORMS)
+def test_sharded_decode_matches_jax_sharded(mesh_decode, form):
+    where, waves, ranks, _ = mesh_decode
+    ref = JaxEnhancer(str(where / "m.wts"), str(where / "m.norm"),
+                      blend="auto" if form == "auto" else 0.0,
+                      mesh=ref_make_mesh(2, 1))
+    if form == "fast":
+        want = [(w, None, None) for w in ref.enhance_batch_waves(waves)]
+    elif form == "batch":
+        want = ref.enhance_batch(waves)
+    else:
+        want = [ref.enhance(w) for w in waves]
+    for i, (wave, _, lps) in enumerate(want):
+        assert _lsb(ranks[0][f"{form}_wave{i}"], wave) <= 1
+        if lps is not None:
+            np.testing.assert_allclose(ranks[0][f"{form}_lps{i}"], lps,
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("extra", [[], ["--batch", "2"]], ids=["one", "batch"])
+def test_cli_decode_mesh_data_writes_one_process_files(mesh_decode, tmp_path,
+                                                      extra):
+    where, waves, _, _ = mesh_decode
+    paths = []
+    for i, wave in enumerate(waves):
+        paths.append(str(tmp_path / f"u{i}.wav"))
+        write_wav(paths[-1], wave, 16000)
+    (tmp_path / "noisy.scp").write_text("\n".join(paths) + "\n")
+
+    def decode(out, *flags):
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu_se_torch", "decode", "--scp",
+             str(tmp_path / "noisy.scp"), "--clean-scp",
+             str(tmp_path / "noisy.scp"), "--wts", str(where / "m.wts"),
+             "--norm", str(where / "m.norm"), "--out-dir", str(out),
+             "--device", "cpu", *extra, *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+        return r.stdout
+
+    log = decode(tmp_path / "mesh", "--mesh-data", "2")
+    decode(tmp_path / "one")
+    assert log.count("segsnr=") == len(waves)        # rank 0 logs alone
+    assert (sorted(os.listdir(tmp_path / "mesh"))
+            == sorted(os.listdir(tmp_path / "one")))
+    for i in range(len(waves)):
+        got, sr = read_wav(tmp_path / "mesh" / f"u{i}_enhanced.wav")
+        want, _ = read_wav(tmp_path / "one" / f"u{i}_enhanced.wav")
+        assert sr == 16000 and _lsb(got, want) <= 1
+        np.testing.assert_allclose(
+            _info(tmp_path / "mesh" / f"u{i}.info.txt"),
+            _info(tmp_path / "one" / f"u{i}.info.txt"), rtol=0,
+            atol=INFO_ATOL)

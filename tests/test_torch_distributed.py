@@ -164,7 +164,7 @@ def test_two_rank_training_matches_one_process(pair, two_rank_run, tmp_path):
         _assert_weights_close(out / f"mlp.{e}.wts",
                               read_wts(tmp_path / "one" / f"mlp.{e}.wts"))
     for rank, log in enumerate(logs):
-        assert f"data mesh: data=2, rank {rank} on cpu (gloo)" in log
+        assert f"data mesh: data=2, model=1, rank {rank} on cpu (gloo)" in log
         assert "replicas equal at 2 epoch ends" in log
         assert "ggd_colsum 0 launches" in log      # the CPU ran plain
 

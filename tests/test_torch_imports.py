@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
             "import tpu_se_torch.utils.profiling, tpu_se_torch.utils.device\n"
             "import tpu_se_torch.parallel, tpu_se_torch.parallel.mesh\n"
             "import tpu_se_torch.parallel.distributed, tpu_se_torch.__main__\n"
+            "import tpu_se_torch.parallel.tensor\n"
+            "import tpu_se_torch.bench.dp_epoch, tpu_se_torch.bench.mesh_decode\n"
             "import tpu_se_torch.data.pipeline\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -55,14 +57,17 @@ def test_parallel_exports_the_ported_names():
     import tpu_se.parallel
     import tpu_se_torch.parallel as port
 
-    # Everything of the reference but the sharding specs of the model axis
-    # and of single-process device placement, which the port's process
-    # model has no use for (one process per device; --mesh-model queued).
-    left_out = {"batch_sharding", "replicated_sharding", "param_shardings"}
+    # Everything of the reference but its single-process device placement
+    # (NamedShardings of one array over local devices), which the port's
+    # process model has no use for: one process per device.  The model
+    # axis' layout, param_shardings, is ported (with shard_params and
+    # gather_params, which place and gather it).
+    left_out = {"batch_sharding", "replicated_sharding"}
     assert set(tpu_se.parallel.__all__) - left_out <= set(port.__all__)
     assert {"Mesh", "shutdown_distributed", "allgather_host_rows",
-            "allgather_rows", "sync_processes",
-            "launch_local_ranks"} <= set(port.__all__)
+            "allgather_rows", "sync_processes", "launch_local_ranks",
+            "TensorParallelFFN", "shard_params",
+            "gather_params"} <= set(port.__all__)
     assert len(set(port.__all__)) == len(port.__all__)
     for name in port.__all__:
         assert callable(getattr(port, name)), name

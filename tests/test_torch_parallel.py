@@ -10,8 +10,13 @@ kills its ranks when it ends.
 - ``shard_train_args``: rank k's columns are the block the reference's
   ``NamedSharding(P(None, "data"))`` gives device k;
 - ``make_mesh`` / ``MeshConfig`` / ``initialize_distributed`` without a
-  coordinator, and the refusals (``model > 1``, more devices than ranks, a
-  bunch that the ranks cannot split, bad coordinator arguments);
+  coordinator (the card unless the caller asks for the CPU), the mesh's
+  rank layout (rank = d * model + m, as the reference's
+  ``devices.reshape(data, model)``), and the refusals (more devices than
+  ranks, a bunch that the ranks cannot split, bad coordinator arguments);
+- the axes' collectives over a 2 x 2 gloo cluster: all-reduce and
+  all-gather over ``data`` and over ``model``, int16 carried exactly, the
+  replica check over the whole group and over one axis;
 - a mesh of one rank without a group is the one-device step bit for bit
   (``output_grad_and_alpha`` and ``train_chunk``);
 - the dropout masks of P ranks are one process's, row for row;
@@ -21,8 +26,9 @@ kills its ranks when it ends.
   the virtual CPU devices, weights rtol 2e-4, atol 1e-6, alpha rtol 1e-4
   (``tests/test_parallel.py:59-63``: P partial sums added are not one sum
   over M rows);
-- the ``train`` parser takes the mesh flags; ``--mesh-model 2`` stops both
-  front ends with the message that names it as queued.
+- the ``train`` parser takes the mesh flags; a hidden width that the
+  model axis cannot split stops every front end before a rank starts
+  (the model axis itself: ``tests/test_torch_tensor_parallel.py``).
 """
 
 import os
@@ -94,27 +100,56 @@ def test_mesh_config_and_one_rank_mesh():
     assert parallel.MeshConfig(2, 3).n_devices == 6
     mesh = parallel.make_mesh(device="cpu")
     assert (mesh.rank, mesh.size, mesh.backend) == (0, 1, None)
+    assert (mesh.data, mesh.model, mesh.data_rank, mesh.model_rank) == (
+        1, 1, 0, 0)
     assert mesh.device == torch.device("cpu")
     t = torch.arange(3, dtype=torch.float32)
     assert mesh.all_reduce_sum(t) is t and mesh.all_reduce_calls == 0
+    assert mesh.all_gather(t, 0, "model") is t
     mesh.check_replicas([t], "alone")          # nothing to compare with
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            parallel.make_mesh()               # the card, unless told cpu
+
+
+@pytest.mark.parametrize("data,model", [(4, 2), (2, 4), (8, 1), (1, 8)])
+def test_mesh_lays_ranks_out_as_the_reference_reshape(data, model):
+    devices = jax.devices()
+    if len(devices) < 8:
+        pytest.skip("need 8 virtual devices")
+    ref = np.vectorize(lambda d: d.id)(
+        ref_parallel.make_mesh(data, model).devices)
+    for rank in range(8):
+        mesh = Mesh(rank, 8, "cpu", None, model=model)
+        d, m = mesh.data_rank, mesh.model_rank
+        assert (mesh.data, mesh.model) == (data, model)
+        assert ref[d, m] == devices[rank].id
+        assert mesh.axis_ranks("data") == [devices.index(dev) for dev in
+                                           ref_parallel.make_mesh(
+                                               data, model).devices[:, m]]
+        assert mesh.axis_ranks("model") == [
+            d * model + k for k in range(model)]
 
 
 def test_make_mesh_refusals():
     # The reference's own words when devices are short (mesh.py:44-46).
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
-        parallel.make_mesh(2, 1)
+        parallel.make_mesh(2, 1, device="cpu")
     with pytest.raises(ValueError) as ref_err:
         ref_parallel.make_mesh(16, 1)
     assert "mesh 16x1 needs 16 devices, have" in str(ref_err.value)
-    with pytest.raises(NotImplementedError, match="--mesh-model > 1.*queued"):
-        parallel.make_mesh(1, 2)
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
+        parallel.make_mesh(1, 2, device="cpu")
+    with pytest.raises(ValueError, match="model axis of 3 does not divide"):
+        Mesh(0, 4, "cpu", "gloo", model=3)
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        Mesh(0, 2, "cpu", "gloo").all_reduce_sum(torch.zeros(2), "rows")
     with pytest.raises(ValueError, match="takes float32"):
         Mesh(0, 2, "cpu", "gloo").all_reduce_sum(torch.zeros(2).double())
 
 
 def test_initialize_distributed_without_a_coordinator_is_a_noop():
-    info = parallel.initialize_distributed()
+    info = parallel.initialize_distributed(device="cpu")
     assert info == {"process_index": 0, "process_count": 1,
                     "local_devices": 1, "global_devices": 1,
                     "device": torch.device("cpu"), "backend": None}
@@ -311,22 +346,59 @@ def test_train_parser_takes_the_mesh_flags():
 
 @pytest.mark.parametrize("front_end", ["train", "bptrain", "run_training"])
 def test_mesh_model_is_refused_as_queued(front_end, tmp_path):
+    """The model axis runs (``tests/test_torch_tensor_parallel.py``); what
+    every front end still refuses, before a rank starts, is a hidden width
+    that the model axis cannot split."""
     out = tmp_path / "out"
+    match = "hidden width 63 does not split evenly over 2 ranks"
     if front_end == "train":
-        with pytest.raises(SystemExit, match="--mesh-model > 1.*queued"):
+        with pytest.raises(ValueError, match=match):
             cli_main(["train", "--fea-file", "a", "--targ-file", "b",
                       "--norm-file", "c", "--out-dir", str(out),
-                      "--mesh-model", "2", "--device", "cpu"])
+                      "--layersizes", "1799,63,257", "--mesh-model", "2",
+                      "--device", "cpu"])
     elif front_end == "bptrain":
-        with pytest.raises(SystemExit, match="mesh_model=2.*queued"):
+        with pytest.raises(SystemExit, match=f"{match}.*mesh_model=2"):
             cli_main(["bptrain", "fea_file=a", "targ_file=b", "norm_file=c",
-                      f"outwts_file={out}/m.wts", "mesh_model=2",
-                      "device=cpu"])
+                      f"outwts_file={out}/m.wts", "layersizes=1799,63,257",
+                      "mesh_model=2", "device=cpu"])
     else:
-        with pytest.raises(NotImplementedError, match="queued"):
+        with pytest.raises(ValueError, match=match):
             train.run_training(train.TrainConfig(
-                out_dir=str(out), mesh=parallel.MeshConfig(1, 2)), "cpu")
+                out_dir=str(out), layersizes=(1799, 63, 257),
+                mesh=parallel.MeshConfig(1, 2)), "cpu")
     assert not out.exists()
+
+
+def test_mesh_axes_collectives_over_gloo_ranks(tmp_path):
+    """A 2 x 2 mesh: every rank's sums, gathers and replica checks along
+    each axis are those of its line of the reference's grid."""
+    port = free_port()
+    codes, logs = run_ranks(
+        lambda k: [WORKER, "axes", str(k), "4", str(port), str(tmp_path)],
+        4, timeout=120)
+    assert codes == [0] * 4, "\n".join(logs)
+    for rank in range(4):
+        d, m = divmod(rank, 2)
+        got = np.load(tmp_path / f"axes.{rank}.npz")
+        data_line, model_line = [m, 2 + m], [2 * d, 2 * d + 1]
+        np.testing.assert_array_equal(got["data_sum"],
+                                      np.full(3, sum(data_line), np.float32))
+        np.testing.assert_array_equal(got["model_sum"],
+                                      np.full(3, sum(model_line), np.float32))
+        np.testing.assert_array_equal(
+            got["data_gather"], np.array(data_line, np.float32)[:, None]
+            * np.ones((1, 3), np.float32))
+        np.testing.assert_array_equal(
+            got["model_gather"], np.concatenate(
+                [np.full((2, 1), r, np.int16) - 30000 for r in model_line],
+                axis=1))
+        assert got["model_gather"].dtype == np.int16
+        # 2 all-reduces (one per axis), and per axis one gather: the bytes
+        # are what this rank gave.
+        np.testing.assert_array_equal(got["traffic"],
+                                      [[1, 12, 1, 12], [1, 12, 1, 8]])
+        assert got["raised"] == 1
 
 
 def test_mesh_data_on_cuda_without_a_card_raises(tmp_path):

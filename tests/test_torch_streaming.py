@@ -22,6 +22,12 @@ bfloat16 stream is held to the port's bfloat16 batch decode and to JAX's
 bfloat16 streamer at 1 % of the peak, with fewer than 2 % of the samples
 more than 1 LSB apart (measured: 1 LSB everywhere).
 
+Under a data mesh (``StreamingEnhancer(mesh=)``, two gloo ranks of
+``tests/torch_mp_worker.py``, the twin of ``tests/test_parallel.py:222-242``)
+8 streams on the int16 wire are bitwise the port's one process on every
+rank (a rank's products have 4 rows instead of 8; measured bitwise here),
+and within 1 LSB of ``tpu_se``'s streamer under ``make_mesh(2, 1)``.
+
 The tests that need a card are marked ``cuda`` and skip without one;
 on a card (no JAX there) run
 
@@ -535,11 +541,13 @@ def test_cli_stream_warns_of_ignored_options(fx, wav_files, tmp_path, capsys):
     rc = cli_main(["decode", wav_files[0], "--wts", fx["wts"],
                    "--norm", fx["norm"], "--out-dir", str(tmp_path / "o"),
                    "--stream", "700", "--device", "cpu", "--ni", "--batch",
-                   "4", "--clean-scp", str(scp), "--postprocess", "-fs", "8"])
+                   "4", "--clean-scp", str(scp), "--postprocess", "-fs", "8",
+                   "--mesh-data", "2"])
     assert rc == 0
     captured = capsys.readouterr()
-    assert captured.err.strip() == ("warning: --stream ignores --ni, --batch, "
-                                    "--clean-scp, --postprocess, -fs")
+    assert captured.err.strip() == ("warning: --stream ignores --mesh-data, "
+                                    "--ni, --batch, --clean-scp, "
+                                    "--postprocess, -fs")
     assert "80 ms algorithmic latency" in captured.out
     assert not (tmp_path / "o" / "u0.info.txt").exists()
     got, _ = read_wav(tmp_path / "o" / "u0_enhanced.wav")
@@ -617,3 +625,53 @@ def test_replayed_step_equals_eager_step_on_the_card(tmp_path, compute_dtype):
         _bf16_close(card_out.ravel(), cpu_out.ravel())
     else:
         assert _lsb(card_out.ravel(), cpu_out.ravel()) <= 1
+
+
+@pytest.fixture(scope="module")
+def mesh_stream(tmp_path_factory):
+    """8 streams over two gloo ranks, and over one process."""
+    from torch_mp_worker import run_decode_cluster, write_decode_problem
+
+    where = tmp_path_factory.mktemp("mesh_stream")
+    problem = write_decode_problem(where)
+    ranks = run_decode_cluster(where, 2)
+    one = StreamingEnhancer(str(where / "m.wts"), str(where / "m.norm"),
+                            n_streams=8, device="cpu")
+    return where, problem, ranks, one.push_many(problem["hops"],
+                                                int16_wire=True)
+
+
+def test_sharded_streaming_matches_single(mesh_stream):
+    _, problem, ranks, (out, valid) = mesh_stream
+    for rank in ranks:
+        np.testing.assert_array_equal(rank["stream_valid"], valid)
+        np.testing.assert_array_equal(rank["stream"], out)
+    assert rank["stream"].shape == problem["hops"].shape
+    assert valid.sum() == problem["hops"].shape[1] - 4      # warm-up hops
+
+
+def test_sharded_streaming_matches_jax_sharded(mesh_stream):
+    from tpu_se.infer import StreamingEnhancer as JaxStreamer
+    from tpu_se.parallel import make_mesh
+
+    where, problem, ranks, _ = mesh_stream
+    ref = JaxStreamer(str(where / "m.wts"), str(where / "m.norm"),
+                      n_streams=8, mesh=make_mesh(2, 1))
+    out, valid = ref.push_many(problem["hops"], int16_wire=True)
+    np.testing.assert_array_equal(ranks[0]["stream_valid"], valid)
+    got = ranks[0]["stream"]
+    assert np.abs(got.astype(np.int32) - np.asarray(out)).max() <= 1
+
+
+@pytest.mark.parametrize("n_streams", [1, 3])
+def test_mesh_streams_must_split_over_the_data_axis(fx, n_streams):
+    from tpu_se_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match=f"n_streams {n_streams} not "
+                                         "divisible by mesh data axis 2"):
+        StreamingEnhancer(fx["wts"], fx["norm"], n_streams=n_streams,
+                          mesh=Mesh(0, 2, "cpu", None))
+    # A model axis takes no channels: a 1 x 2 mesh streams them all.
+    s = StreamingEnhancer(fx["wts"], fx["norm"], n_streams=n_streams,
+                          mesh=Mesh(1, 2, "cpu", None, model=2))
+    assert s.state.ring.shape[0] == n_streams

@@ -22,6 +22,20 @@ Modes:
   (``chunk.npz``).
 - ``replicas``: rank 1 moves one weight by one ulp, then every rank calls
   ``Mesh.check_replicas``; exit code 5 when it raised as it must.
+- ``axes``: a 2 x 2 mesh; every rank sums and gathers its rank over each
+  axis (the model axis' gather in int16), checks replicas that are equal
+  along the data axis and then ones that differ across the model axis,
+  and saves what it got (``axes.<rank>.npz``).
+- ``tp <model> <names...>``: a ``data`` x ``model`` mesh over the ranks;
+  for each ``<dir>/tp_<name>.npz`` problem (written by the test) the
+  sharded forward of its ``x`` (each data index its rows, with and
+  without dropout) and one ``train_chunk`` per ``ml`` in {1, 0} (and in
+  bfloat16 when the problem asks), from ``shard_params`` of its layers;
+  rank 0 saves the gathered outputs, weights, velocity, alpha and the
+  collectives' traffic (``tp_<name>.out.npz``).
+- ``decode``: ``tpu_se_torch.bench.mesh_decode.decode_all`` on
+  ``<dir>/decode.npz`` (written by the test) with a data mesh over the
+  ranks; every rank saves what it returned (``decode.<rank>.npz``).
 - ``train <args...>``: the ``tpu_se_torch train`` CLI as this rank, hard
   killed (``os._exit(7)``: no cleanup, as SIGKILL) after
   ``TPU_SE_TORCH_CRASH_AFTER_CHUNKS`` ``train_chunk`` dispatches when that
@@ -42,9 +56,10 @@ sys.path.insert(0, REPO)
 from tpu_se_torch.data import PfilePairDataset, shard_for_host  # noqa: E402
 from tpu_se_torch.models import params_from_numpy  # noqa: E402
 from tpu_se_torch.parallel import (  # noqa: E402
-    allgather_host_rows, initialize_distributed, make_mesh,
-    shard_train_args, shutdown_distributed,
+    allgather_host_rows, gather_params, initialize_distributed, make_mesh,
+    shard_params, shard_train_args, shutdown_distributed,
 )
+from tpu_se_torch.parallel.tensor import gather_layers  # noqa: E402
 from tpu_se_torch.train import (  # noqa: E402
     TrainHyper, load_device_frames, make_train_state, param_layers,
     train_chunk,
@@ -92,6 +107,46 @@ def run_ranks(argv_for_rank, n_ranks: int, timeout: float = 120.0,
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def write_decode_problem(where) -> dict:
+    """A (1799, 32, 32, 257) model, its ``.norm``, three int16 waves and
+    8 streams of 12 hops, as ``tests/test_parallel.py:116-242`` makes them,
+    written to ``where`` (``m.wts``, ``m.norm``, ``decode.npz``)."""
+    from tpu_se_torch.io import write_norm, write_wts
+    from tpu_se_torch.models import init_params
+
+    write_wts(os.path.join(where, "m.wts"),
+              init_params(11, (1799, 32, 32, 257)))
+    rng = np.random.default_rng(2)
+    write_norm(os.path.join(where, "m.norm"),
+               rng.normal(size=257).astype(np.float32),
+               (0.5 + rng.random(257)).astype(np.float32))
+    waves = [(rng.normal(size=n) * 3000).astype(np.int16)
+             for n in (8000, 12000, 5000)]
+    problem = {"waves": np.concatenate(waves),
+               "lengths": np.array([len(w) for w in waves]),
+               "hops": (rng.normal(size=(8, 12, 256)) * 3000).astype(
+                   np.int16)}
+    np.savez(os.path.join(where, "decode.npz"), **problem)
+    return problem
+
+
+def run_decode_cluster(where, n_ranks: int) -> list[dict]:
+    """``decode`` mode over ``n_ranks`` gloo ranks -> what each returned."""
+    from tpu_se_torch.parallel.mesh import free_port
+
+    port = free_port()
+    codes, logs = run_ranks(
+        lambda k: [os.path.abspath(__file__), "decode", str(k), str(n_ranks),
+                   str(port), str(where)], n_ranks, timeout=180)
+    if codes != [0] * n_ranks:
+        raise RuntimeError("\n".join(logs))
+    out = []
+    for rank in range(n_ranks):
+        with np.load(os.path.join(where, f"decode.{rank}.npz")) as z:
+            out.append(dict(z))
+    return out
 
 
 def gather_problem() -> np.ndarray:
@@ -145,6 +200,111 @@ def run_chunk(rank, n_ranks, out_dir, ml, beta):
                 out[f"{k}{i}"] = p[k].detach().numpy()
                 out[f"vel_{k}{i}"] = v[k].numpy()
         np.savez(os.path.join(out_dir, "chunk.npz"), **out)
+
+
+def _load(path):
+    with np.load(path) as z:
+        problem = dict(z)
+    n_layers = sum(1 for k in problem if k[0] == "w" and k[1:].isdigit())
+    layers = [{"w": problem[f"w{i}"], "b": problem[f"b{i}"]}
+              for i in range(n_layers)]
+    return problem, layers
+
+
+def _tp_forward(mesh, model, x, **kw):
+    """The whole batch's outputs: each data index forwards its rows."""
+    per = x.shape[0] // mesh.data
+    mine = x[mesh.data_rank * per:(mesh.data_rank + 1) * per]
+    with torch.no_grad():
+        out = model(mine, dropout_rows=(mesh.data_rank * per, x.shape[0]),
+                    **kw)
+    return mesh.all_gather(out, 0, "data").numpy()
+
+
+def run_tp(rank, n_ranks, out_dir, model_axis, *names):
+    mesh = make_mesh(None, int(model_axis), device="cpu")
+    assert (mesh.rank, mesh.size, mesh.model) == (rank, n_ranks,
+                                                  int(model_axis))
+    for name in names:
+        problem, layers = _load(os.path.join(out_dir, f"tp_{name}.npz"))
+        out = {}
+        model = shard_params(layers, mesh)
+        x = torch.from_numpy(problem["x"])
+        out["forward"] = _tp_forward(mesh, model, x)
+        out["dropout"] = _tp_forward(
+            mesh, model, x, dropout=(0.2, 0.5),
+            generator=torch.Generator().manual_seed(77))
+        cases = [("ml1", True, "float32"), ("ml0", False, "float32")]
+        if "bf16" in problem:
+            cases.append(("bf16", True, "bfloat16"))
+        for case, ml, dtype in cases:
+            hyper = TrainHyper(beta=1.0, ml=ml,
+                               bunchsize=int(problem["starts"].shape[1]),
+                               context=int(problem["context"]),
+                               targ_offset=int(problem["targ_offset"]),
+                               compute_dtype=dtype)
+            state = make_train_state(shard_params(layers, mesh))
+            before = {axis: {op: list(v) for op, v in ops.items()}
+                      for axis, ops in mesh.traffic.items()}
+            noisy, clean, starts = shard_train_args(
+                mesh, torch.from_numpy(problem["noisy"]),
+                torch.from_numpy(problem["clean"]),
+                torch.from_numpy(problem["starts"].astype(np.int64)))
+            train_chunk(state, noisy, clean, starts, float(problem["lr"]),
+                        hyper, mesh=mesh)
+            state.model.check_replicas("after the chunk")
+            for axis, ops in mesh.traffic.items():
+                for op, (calls, sent) in ops.items():
+                    out[f"{case}_{axis}_{op}"] = np.array(
+                        [calls - before[axis][op][0],
+                         sent - before[axis][op][1]])
+            if mesh.data_rank == 0:
+                whole = gather_params(state.model, mesh)
+                vel = gather_layers(state.velocity, mesh)
+                for i, (p, v) in enumerate(zip(whole, vel)):
+                    for k in ("w", "b"):
+                        out[f"{case}_{k}{i}"] = p[k]
+                        out[f"{case}_vel_{k}{i}"] = v[k]
+            out[f"{case}_alpha"] = state.alpha.numpy()
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"tp_{name}.out.npz"), **out)
+
+
+def run_decode(rank, out_dir):
+    from tpu_se_torch.bench.mesh_decode import decode_all
+
+    with np.load(os.path.join(out_dir, "decode.npz")) as z:
+        problem = dict(z)
+    got = decode_all(os.path.join(out_dir, "m.wts"),
+                     os.path.join(out_dir, "m.norm"), problem,
+                     make_mesh(device="cpu"), "cpu")
+    np.savez(os.path.join(out_dir, f"decode.{rank}.npz"), **got)
+
+
+def run_axes(rank, out_dir):
+    mesh = make_mesh(None, 2, device="cpu")
+    mine = torch.full((3,), float(rank))
+    data_sum = mesh.all_reduce_sum(mine.clone(), "data")
+    model_sum = mesh.all_reduce_sum(mine.clone(), "model")
+    data_gather = mesh.all_gather(mine[None], 0, "data")
+    model_gather = mesh.all_gather(
+        torch.full((2, 1), rank - 30000, dtype=torch.int16), 1, "model")
+    # Equal along the data axis (a shard of model index m), different
+    # across the model axis: the data check passes, the whole one raises.
+    shard = [torch.full((2,), float(mesh.model_rank))]
+    mesh.check_replicas(shard, "in the test", axis="data")
+    try:
+        mesh.check_replicas(shard, "in the test")
+        raised = 0
+    except RuntimeError:
+        raised = 1
+    np.savez(os.path.join(out_dir, f"axes.{rank}.npz"),
+             data_sum=data_sum.numpy(), model_sum=model_sum.numpy(),
+             data_gather=data_gather.numpy(),
+             model_gather=model_gather.numpy(), raised=raised,
+             traffic=[[n for op in ("all_reduce", "all_gather")
+                       for n in mesh.traffic[axis][op]]
+                      for axis in ("data", "model")])
 
 
 def run_replicas(rank):
@@ -201,6 +361,12 @@ def main() -> int:
             run_chunk(rank, n_ranks, out_dir, *rest)
         elif mode == "replicas":
             return run_replicas(rank)
+        elif mode == "axes":
+            run_axes(rank, out_dir)
+        elif mode == "tp":
+            run_tp(rank, n_ranks, out_dir, *rest)
+        elif mode == "decode":
+            run_decode(rank, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:

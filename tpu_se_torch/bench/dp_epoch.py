@@ -1,20 +1,22 @@
-"""Time one training epoch as one rank of a data mesh.
+"""Time one training epoch as one rank of a data x model mesh.
 
     python -m tpu_se_torch.bench.dp_epoch --fea-file F --targ-file T \\
         --norm-file N --init-wts W [--coordinator HOST:PORT \\
-        --num-processes P --process-id K [--cpu-collectives gloo]] \\
-        [--device cuda|cpu]
+        --num-processes P --process-id K [--cpu-collectives gloo] \\
+        [--mesh-model M]] [--device cuda|cpu]
 
 Run once per rank, like ``python -m tpu_se_torch train``; without
 ``--coordinator`` it is the one-device step (the fused GGD kernel, no
-collective).  Each rank uploads the training span (sharded read and
-all-gather under a mesh of several ranks, checked against the unsharded
-read), trains one warm-up epoch and then times a second one: resident
-frames, no CV, the host clock around an epoch that ends in a synchronise
-and a barrier.  The last line of its output is one JSON object: the rank,
-the backend, ms per bunch, the GGD kernels' launches and the collectives'
-calls and bytes in the timed epoch, and whether the gathered span equalled
-the unsharded one.
+collective).  Under a coordinator the model is this rank's shard
+(``shard_params``) over a model axis of M ranks, the data axis being the
+rest.  Each rank uploads the training span (sharded read and all-gather
+under a mesh of several ranks, checked against the unsharded read), trains
+one warm-up epoch and then times a second one: resident frames, no CV, the
+host clock around an epoch that ends in a synchronise and a barrier.  The
+last line of its output is one JSON object: the rank and the mesh, ms per
+bunch, the GGD kernels' launches and, per axis, the collectives' calls and
+bytes in the timed epoch, and whether the gathered span equalled the
+unsharded one.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from tpu_se_torch.ops import ggd_kernel
 from tpu_se_torch.parallel import (
     initialize_distributed, make_mesh, shutdown_distributed, sync_processes,
 )
+from tpu_se_torch.parallel.mesh import AXES, COLLECTIVES
 from tpu_se_torch.train import (
     TrainConfig, load_checkpoint, load_device_frames, train_one_epoch,
 )
@@ -52,7 +55,7 @@ def timed_epoch(args, device: torch.device, mesh) -> dict:
     frames = load_device_frames(ds, device, mesh)
     whole = load_device_frames(ds, device)
     span_equal = all(torch.equal(a, b) for a, b in zip(frames, whole))
-    state = load_checkpoint(args.init_wts, device)
+    state = load_checkpoint(args.init_wts, device, mesh=mesh)
     hyper = cfg.hyper()
     bunches = int(sum(int(n) // cfg.bunchsize for n in ds.plan.n_samples))
 
@@ -66,30 +69,37 @@ def timed_epoch(args, device: torch.device, mesh) -> dict:
         _sync(device)
         return time.perf_counter() - t0
 
+    def counts() -> list[int]:
+        sent = ([] if mesh is None else
+                [n for axis in AXES for op in COLLECTIVES
+                 for n in mesh.traffic[axis][op]])
+        return [ggd_kernel.launches, ggd_kernel.colsum_launches,
+                ggd_kernel.grad_from_sums_launches, *sent]
+
     epoch(1)
-    before = (ggd_kernel.launches, ggd_kernel.colsum_launches,
-              ggd_kernel.grad_from_sums_launches,
-              0 if mesh is None else mesh.all_reduce_calls,
-              0 if mesh is None else mesh.all_reduce_bytes)
+    before = counts()
     seconds = epoch(2)
-    after = (ggd_kernel.launches, ggd_kernel.colsum_launches,
-             ggd_kernel.grad_from_sums_launches,
-             0 if mesh is None else mesh.all_reduce_calls,
-             0 if mesh is None else mesh.all_reduce_bytes)
-    fused, colsum, from_sums, calls, sent = (
-        b - a for a, b in zip(before, after))
+    moved = [b - a for a, b in zip(before, counts())]
+    traffic = {f"{axis}_{op}_{what}": n for (axis, op, what), n in zip(
+        ((axis, op, what) for axis in AXES for op in COLLECTIVES
+         for what in ("calls", "bytes")), moved[3:])}
     return {"rank": 0 if mesh is None else mesh.rank,
             "ranks": 1 if mesh is None else mesh.size,
+            "data": 1 if mesh is None else mesh.data,
+            "model": 1 if mesh is None else mesh.model,
             "backend": None if mesh is None else mesh.backend,
             "device": str(device), "bunches": bunches,
             "rows_per_rank": cfg.bunchsize // (1 if mesh is None
-                                               else mesh.size),
+                                               else mesh.data),
             "ms_per_bunch": seconds / bunches * 1e3,
-            "ggd_output_grad_launches": fused,
-            "ggd_colsum_launches": colsum,
-            "ggd_grad_from_sums_launches": from_sums,
-            "all_reduce_calls": calls, "all_reduce_bytes": sent,
-            "span_equal": span_equal}
+            "ggd_output_grad_launches": moved[0],
+            "ggd_colsum_launches": moved[1],
+            "ggd_grad_from_sums_launches": moved[2],
+            "all_reduce_calls": sum(v for k, v in traffic.items()
+                                    if k.endswith("all_reduce_calls")),
+            "all_reduce_bytes": sum(v for k, v in traffic.items()
+                                    if k.endswith("all_reduce_bytes")),
+            **traffic, "span_equal": span_equal}
 
 
 def main(argv=None) -> int:
@@ -105,6 +115,7 @@ def main(argv=None) -> int:
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--cpu-collectives", default="")
+    p.add_argument("--mesh-model", type=int, default=1)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -116,7 +127,7 @@ def main(argv=None) -> int:
                                   args.process_id,
                                   args.cpu_collectives or None, device)
     try:
-        mesh = make_mesh(device=info["device"])
+        mesh = make_mesh(None, args.mesh_model, info["device"])
         result = timed_epoch(args, mesh.device, mesh)
     finally:
         shutdown_distributed()

@@ -42,33 +42,44 @@ from tpu_se_torch.infer import Enhancer
 from tpu_se_torch.ops import lps_kernel
 
 
-def device_profile(fn, iters: int) -> tuple[float, float, list]:
+def device_profile(fn, iters: int, whole: bool = False,
+                   windows: int = 5) -> tuple[float, float, list]:
     """(busy us per call, device launches per call, [(name, us per call,
     launches per call)]) of ``fn`` from ``torch.profiler``: the self device
     time of every entry that ran on the card (kernels and copies; the
     host-side ``aten::`` ops carry their kernels' time a second time).
 
-    A window whose trace comes back without a single device entry (seen
-    once in some dozens of windows on an H100: the tracer delivered no
-    activity records for it) is profiled again, at most twice, and said so;
-    a third empty trace raises."""
-    for attempt in range(3):
+    The tracer on an H100 now and then delivers a window's activity records
+    only in part: none at all (seen once in some dozens of windows), or
+    some of a replayed CUDA graph's kernels and not others (seen once at
+    10 replays of a one-stream hop: 6 of its 10 LPS kernels).  A window
+    with no device entry, or, with ``whole`` (``fn`` launches the same
+    kernels on every call, as a graph replay does), with an entry whose
+    count is not a multiple of ``iters``, is profiled again and said so;
+    after ``windows`` such windows this raises."""
+    for attempt in range(windows):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        entries = [e for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type == DeviceType.CUDA]
         rows = [(e.key, e.self_device_time_total / iters, e.count / iters)
-                for e in prof.key_averages()
-                if e.self_device_time_total > 0
-                and e.device_type == DeviceType.CUDA]
-        if rows:
+                for e in entries]
+        torn = [e.key for e in entries if e.count % iters] if whole else []
+        if rows and not torn:
             break
-        print(f"device_profile: the trace of {iters} calls holds no device "
-              f"entry (attempt {attempt + 1} of 3)")
+        what = (f"{len(torn)} entries whose counts are not a multiple of "
+                f"{iters}, such as {torn[0][:60]}" if rows
+                else "no device entry")
+        print(f"device_profile: the trace of {iters} calls holds {what} "
+              f"(window {attempt + 1} of {windows})")
     else:
-        raise RuntimeError("torch.profiler traced no device activity in "
-                           "three windows")
+        raise RuntimeError(f"torch.profiler traced no whole window of "
+                           f"{iters} calls in {windows}")
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 

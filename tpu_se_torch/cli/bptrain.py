@@ -20,11 +20,13 @@ An argument without ``=`` is a format error; an unknown key is ignored
 silently (that is how the reference swallows ``numlayers=``).  The
 ``tpu_se`` extension keys parse the same way, plus ``device`` (``cuda``,
 the default, or ``cpu``).  ``compute_dtype`` is ``float32`` or ``bfloat16``
-(anything else stops the run).  ``mesh_data=N`` trains the epoch data
-parallel over N ranks of this host, one process per device, started here
-(rank k on card k, or N CPU ranks with ``device=cpu``); rank 0 writes the
-weights and the log.  ``mesh_model>1`` (tensor parallel) is not ported yet
-and stops the run.
+(anything else stops the run).  ``mesh_data=N`` and ``mesh_model=M``
+train the epoch over N x M ranks of this host, one process per device,
+started here (rank k on card k, or CPU ranks with ``device=cpu``): the
+bunch splits over the N ranks of the data axis, and the hidden layers
+alternate column- and row-parallel over the M ranks of the model axis;
+rank 0 writes the weights (whole, gathered over the model axis) and the
+log.
 """
 
 from __future__ import annotations
@@ -108,10 +110,17 @@ def _check_supported(cfg: dict) -> None:
         raise SystemExit(f"bptrain: compute_dtype={cfg['compute_dtype']} is "
                          "not float32 or bfloat16")
     if cfg["mesh_model"] > 1:
-        from tpu_se_torch.parallel.mesh import MODEL_AXIS_MESSAGE
+        from tpu_se_torch.io import read_wts
+        from tpu_se_torch.parallel.tensor import check_model_split
+        from tpu_se_torch.train.loop import model_sizes
 
-        raise SystemExit(f"bptrain: mesh_model={cfg['mesh_model']}: "
-                         f"{MODEL_AXIS_MESSAGE.replace('--mesh-model', 'mesh_model=')}")
+        sizes = (model_sizes(read_wts(cfg["initwts_file"]))
+                 if cfg["initwts_file"] else cfg["layersizes"])
+        try:
+            check_model_split(sizes, cfg["mesh_model"])
+        except ValueError as e:
+            raise SystemExit(f"bptrain: {e} (mesh_model="
+                             f"{cfg['mesh_model']})")
     if cfg["mesh_data"] > 1 and cfg["bunchsize"] % cfg["mesh_data"] != 0:
         raise SystemExit(f"bptrain: bunchsize={cfg['bunchsize']} does not "
                          f"split evenly over mesh_data={cfg['mesh_data']} "
@@ -123,16 +132,16 @@ def _check_supported(cfg: dict) -> None:
 
 
 def _bptrain_rank(rank: int, cfg: dict, port: int, code) -> None:
-    """One rank of ``mesh_data=N``, in its own spawned process; rank 0
-    leaves the epoch's return code in ``code``."""
+    """One rank of ``mesh_data=N mesh_model=M``, in its own spawned
+    process; rank 0 leaves the epoch's return code in ``code``."""
     from tpu_se_torch.parallel import (
         initialize_distributed, make_mesh, shutdown_distributed,
     )
 
-    info = initialize_distributed(f"127.0.0.1:{port}", cfg["mesh_data"],
-                                  rank, None, cfg["device"])
+    info = initialize_distributed(f"127.0.0.1:{port}", _n_ranks(cfg), rank,
+                                  None, cfg["device"])
     try:
-        mesh = make_mesh(cfg["mesh_data"], 1, info["device"])
+        mesh = make_mesh(None, max(1, cfg["mesh_model"]), info["device"])
         rc = _run_epoch(cfg, mesh.device, mesh,
                         print if rank == 0 else lambda line: None)
     finally:
@@ -141,16 +150,21 @@ def _bptrain_rank(rank: int, cfg: dict, port: int, code) -> None:
         code.value = rc
 
 
+def _n_ranks(cfg: dict) -> int:
+    return max(1, cfg["mesh_data"]) * max(1, cfg["mesh_model"])
+
+
 def run_bptrain(cfg: dict, log=print) -> int:
     """One reference-binary epoch: train, write .wts, CV, write log; over
-    ``mesh_data`` ranks started here when that is above 1."""
+    ``mesh_data`` x ``mesh_model`` ranks started here when that is above
+    1."""
     import torch
 
     from tpu_se_torch.utils import resolve_device
 
     _check_supported(cfg)
     device = resolve_device(cfg["device"])
-    if cfg["mesh_data"] <= 1:
+    if _n_ranks(cfg) == 1:
         return _run_epoch(cfg, device, None, log)
 
     import torch.multiprocessing as mp
@@ -162,7 +176,7 @@ def run_bptrain(cfg: dict, log=print) -> int:
         check_mesh_devices(cfg["mesh_data"], cfg["mesh_model"],
                            torch.cuda.device_count())
     code = mp.get_context("spawn").Value("i", 1)
-    launch_local_ranks(_bptrain_rank, cfg["mesh_data"],
+    launch_local_ranks(_bptrain_rank, _n_ranks(cfg),
                        (dict(cfg, device=device.type), free_port(), code))
     return code.value
 
@@ -173,8 +187,10 @@ def _run_epoch(cfg: dict, device, mesh, log) -> int:
     import torch
 
     from tpu_se_torch.data import PfilePairDataset
-    from tpu_se_torch.models import init_params_uniform, params_from_numpy
-    from tpu_se_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from tpu_se_torch.models import init_params_uniform
+    from tpu_se_torch.train.checkpoint import (
+        load_checkpoint, model_from_layers, save_checkpoint,
+    )
     from tpu_se_torch.train.loop import (
         TrainConfig, evaluate_cv, load_device_frames, train_one_epoch,
     )
@@ -212,13 +228,13 @@ def _run_epoch(cfg: dict, device, mesh, log) -> int:
         # restarts at zero in every epoch process, so the state is rebuilt
         # from the model even if a sidecar sits beside initwts_file.
         model = load_checkpoint(cfg["initwts_file"], device,
-                                cfg["activation"]).model
+                                cfg["activation"], mesh).model
     else:
-        model = params_from_numpy(init_params_uniform(
+        model = model_from_layers(init_params_uniform(
             cfg["init_randem_seed"], cfg["layersizes"],
             cfg["init_randem_weight_min"], cfg["init_randem_weight_max"],
             cfg["init_randem_bias_min"], cfg["init_randem_bias_max"]),
-            device, activation=cfg["activation"])
+            device, cfg["activation"], mesh)
     state = make_train_state(model)
 
     # The device is recorded on its own line, not among the parameters.
@@ -235,10 +251,9 @@ def _run_epoch(cfg: dict, device, mesh, log) -> int:
                             log=lines.append, mesh=mesh)
     lines.append(f"Total cost time: {time.time() - t0:.1f} s.")
     if mesh is not None:
-        mesh.check_replicas(list(state.model.parameters()),
-                            "at the end of the epoch")
+        state.model.check_replicas("at the end of the epoch")
+    save_checkpoint(cfg["outwts_file"], state, with_state=False, mesh=mesh)
     if is_main:
-        save_checkpoint(cfg["outwts_file"], state, with_state=False)
         log(f"weights -> {cfg['outwts_file']}")
 
     lines.append("Starting CV.")

@@ -18,7 +18,12 @@ Commands (reference equivalents in parentheses), each the port of its
   (``tpu_se_torch.cli.bptrain``), ``device=cuda`` (default) or ``cpu``.
 - ``decode``       (decode.m + LPS2Wav_be): noisy wavs -> enhanced wavs, on
   ``--device cuda`` (default) or ``cpu``; ``--stream CHUNK`` sends each wav
-  through the streaming enhancer in CHUNK-sample pieces.
+  through the streaming enhancer in CHUNK-sample pieces; ``--mesh-data N``
+  decodes over N local ranks.
+
+``train --mesh-data N --mesh-model M`` and ``bptrain mesh_data=N
+mesh_model=M`` train over an N x M mesh of local ranks (or, under
+``--coordinator``, of the joined process group).
 """
 
 from __future__ import annotations
@@ -235,13 +240,41 @@ def _stream_files(args, wavs: list) -> int:
     return 0
 
 
+def _decode_options(args) -> dict:
+    return dict(noisy_info=args.ni, batch_size=args.batch,
+                postprocess=args.postprocess, smooth=args.smooth,
+                smooth_strength=args.smooth_strength,
+                sample_rate={8: 8000, 11: 11025, 16: 16000}[args.fs],
+                blend=args.blend)
+
+
+def _decode_rank(rank: int, args, wavs: list, cleans, port: int) -> None:
+    """One rank of ``decode --mesh-data N``, in its own spawned process."""
+    from tpu_se_torch.infer import decode_files
+    from tpu_se_torch.parallel import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+
+    info = initialize_distributed(f"127.0.0.1:{port}", args.mesh_data, rank,
+                                  None, args.device)
+    try:
+        decode_files(args.wts, args.norm, wavs, args.out_dir, cleans,
+                     log=print if rank == 0 else lambda line: None,
+                     mesh=make_mesh(args.mesh_data, 1, info["device"]),
+                     **_decode_options(args))
+    finally:
+        shutdown_distributed()
+
+
 def cmd_decode(args) -> int:
     from tpu_se_torch.infer import decode_files
+    from tpu_se_torch.utils import resolve_device
 
     wavs = _read_scp(args.scp) if args.scp else args.wav
     cleans = _read_scp(args.clean_scp) if args.clean_scp else None
     if args.stream:
-        ignored = [name for name, val in (("--ni", args.ni),
+        ignored = [name for name, val in (("--mesh-data", args.mesh_data > 1),
+                                          ("--ni", args.ni),
                                           ("--batch", args.batch > 0),
                                           ("--clean-scp", cleans is not None),
                                           ("--postprocess", args.postprocess),
@@ -253,13 +286,22 @@ def cmd_decode(args) -> int:
             print(f"warning: --stream ignores {', '.join(ignored)}",
                   file=sys.stderr)
         return _stream_files(args, wavs)
-    sample_rate = {8: 8000, 11: 11025, 16: 16000}[args.fs]
+    if args.mesh_data > 1:
+        # The ranks of this host, one per device (rank k on card k, or
+        # CPU ranks), as train --mesh-data starts them.
+        import torch
+
+        from tpu_se_torch.parallel import launch_local_ranks
+        from tpu_se_torch.parallel.mesh import check_mesh_devices, free_port
+
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            check_mesh_devices(args.mesh_data, 1, torch.cuda.device_count())
+        launch_local_ranks(_decode_rank, args.mesh_data,
+                           (args, wavs, cleans, free_port()))
+        return 0
     decode_files(args.wts, args.norm, wavs, args.out_dir, cleans,
-                 noisy_info=args.ni, batch_size=args.batch,
-                 postprocess=args.postprocess, smooth=args.smooth,
-                 smooth_strength=args.smooth_strength,
-                 sample_rate=sample_rate, blend=args.blend,
-                 device=args.device)
+                 device=args.device, **_decode_options(args))
     return 0
 
 
@@ -276,11 +318,7 @@ def cmd_gen_rand_net(args) -> int:
 
 def cmd_train(args) -> int:
     from tpu_se_torch.parallel import MeshConfig
-    from tpu_se_torch.parallel.mesh import MODEL_AXIS_MESSAGE
     from tpu_se_torch.train import TrainConfig, run_training
-
-    if args.mesh_model > 1:
-        raise SystemExit(f"train: {MODEL_AXIS_MESSAGE}")
 
     cfg = TrainConfig(
         fea_file=args.fea_file, targ_file=args.targ_file,
@@ -305,10 +343,11 @@ def cmd_train(args) -> int:
         coordinator=args.coordinator, num_processes=args.num_processes,
         process_id=args.process_id, cpu_collectives=args.cpu_collectives,
     )
-    # Under a coordinator the mesh spans the process group, whatever
-    # --mesh-data says (it must agree); without one, --mesh-data N starts N
-    # local ranks.
-    if args.mesh_data > 1:
+    # Under a coordinator the mesh spans the process group: --mesh-model
+    # names the model axis and the data axis is the rest (--mesh-data, when
+    # given, must agree); without one, --mesh-data N --mesh-model M starts
+    # N x M local ranks.
+    if args.mesh_data > 1 or args.mesh_model > 1:
         cfg.mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model)
     if args.init_ranges:
         vals = tuple(float(x) for x in args.init_ranges.split(","))
@@ -451,11 +490,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "--coordinator the ranks are started here, rank k "
                         "on card k (or on the CPU)")
     s.add_argument("--mesh-model", type=int, default=1,
-                   help="tensor-parallel axis; only 1 is supported")
+                   help="tensor-parallel ranks: the hidden layers alternate "
+                        "column- and row-parallel over them (every hidden "
+                        "width must divide by it); the mesh has "
+                        "--mesh-data x --mesh-model ranks")
     s.add_argument("--coordinator", default="",
                    help="host:port of rank 0: this process joins a "
-                        "torch.distributed group as one rank of the data "
-                        "mesh (NCCL for --device cuda, gloo for cpu)")
+                        "torch.distributed group as one rank of the mesh "
+                        "(NCCL for --device cuda, gloo for cpu)")
     s.add_argument("--num-processes", type=int, default=None)
     s.add_argument("--process-id", type=int, default=None)
     s.add_argument("--cpu-collectives", default="",
@@ -481,6 +523,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "separate <input-name>.info file in --out-dir")
     s.add_argument("--batch", type=int, default=0,
                    help="decode this many utterances per device pass")
+    s.add_argument("--mesh-data", type=int, default=1,
+                   help="decode over this many ranks of this host, one per "
+                        "device (rank k on card k, or on the CPU): each "
+                        "utterance's frames, or each batch, split over them; "
+                        "rank 0 writes")
     s.add_argument("--stream", type=int, default=0, metavar="CHUNK",
                    help="streaming mode: feed CHUNK-sample pieces through "
                         "StreamingEnhancer (hop in, hop out; 80 ms "

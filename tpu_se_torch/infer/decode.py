@@ -11,6 +11,16 @@ batch is padded to its longest utterance and masked by ``n_valid``; eager
 PyTorch needs none of the JAX package's shape buckets, and padded rows
 change nothing (the splice clamps at the last valid frame, the OLA drops
 invalid rows).
+
+Under a mesh (``Enhancer(mesh=)``, one process per device) the weights are
+whole on every rank and only the ``data`` axis splits the work, as the
+reference shards its frames or its batch over ``data`` and replicates over
+``model``: a batch is padded to a multiple of ``data`` and each data index
+decodes its block of utterances; one utterance's frames are split in
+contiguous blocks, each with the ``context // 2`` frames on either side
+that its splice reads (edge-replicated only at the utterance's ends).  The
+blocks are all-gathered, so every rank returns what one device returns and
+the OLA sees the whole utterance.
 """
 
 from __future__ import annotations
@@ -80,7 +90,8 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
                  inv_std: torch.Tensor, n_valid: torch.Tensor,
                  context: int = 7, blend=0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 cast_weights: list | None = None) -> torch.Tensor:
+                 cast_weights: list | None = None, block: tuple | None = None,
+                 mesh=None) -> torch.Tensor:
     """Normalized forward over edge-replicated spliced frames, on device.
 
     ``lps`` [B, T, D] padded, ``n_valid`` [B] true frame counts.  The
@@ -90,23 +101,37 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
     the noisy LPS (log domain); ``"auto"`` picks the fraction per
     utterance from the model's mean suppression over its valid rows.
     ``compute_dtype`` and ``cast_weights`` go to ``FFN.forward``.
+
+    ``block=(first, lo, hi)``: ``lps`` holds frames [first, first + T) of
+    the utterances and the output is frames [lo, hi), a rank's share of
+    them; ``mesh`` then adds the ``"auto"`` blend's sums over its data
+    axis, so the fraction is the whole utterance's.
     """
     b, t, d = lps.shape
+    first, lo, hi = (0, 0, t) if block is None else block
     normed = (lps - mean) * inv_std
     half = (context - 1) // 2
-    steps = torch.arange(t, device=lps.device)
+    steps = torch.arange(lo, hi, device=lps.device)
     idx = (steps[:, None]
            + torch.arange(-half, half + 1, device=lps.device)[None, :])
     last = (n_valid - 1).clamp(min=0)[:, None, None]
-    idx = torch.minimum(idx.clamp(min=0)[None], last)           # [B, T, C]
+    idx = torch.minimum(idx.clamp(min=0)[None], last) - first    # [B, T, C]
     rows = torch.arange(b, device=lps.device)[:, None, None]
-    x = normed[rows, idx].reshape(b * t, context * d)
+    n = hi - lo
+    x = normed[rows, idx].reshape(b * n, context * d)
     enh = model(x, compute_dtype=compute_dtype,
-                cast_weights=cast_weights).reshape(b, t, d) / inv_std + mean
+                cast_weights=cast_weights).reshape(b, n, d) / inv_std + mean
+    if block is not None:
+        # The noisy LPS of the output frames (past the utterance's end, of
+        # its last frame: those rows are invalid and dropped).
+        lps = lps[rows[..., 0], torch.minimum(steps[None], last[..., 0])
+                  - first]
     if blend == "auto":
         valid = (steps[None, :] < n_valid[:, None]).to(lps.dtype)[..., None]
-        supp_db = (((lps - enh) * valid).sum(dim=(1, 2))
-                   / (n_valid.clamp(min=1) * d) * _DB_PER_NEPER)
+        sums = ((lps - enh) * valid).sum(dim=(1, 2))
+        if mesh is not None:
+            sums = mesh.all_reduce_sum(sums, "data")
+        supp_db = (sums / (n_valid.clamp(min=1) * d) * _DB_PER_NEPER)
         lam = (BLEND_AUTO_LMAX
                * torch.exp(-supp_db.clamp(min=0.0) / BLEND_AUTO_TAU_DB)
                ).clamp(0.0, BLEND_AUTO_MAX)[:, None, None]
@@ -224,13 +249,21 @@ class Enhancer:
     ``compute_dtype`` (``torch.float32``, ``torch.bfloat16`` or their names)
     is the type of the network's product operands; the weights are frozen,
     so their reduced copy is made here, once, and every decode reads it.
+
+    ``mesh`` (a ``tpu_se_torch.parallel.Mesh``; every rank constructs its
+    own ``Enhancer`` and makes the same calls): the decode runs on the
+    mesh's device and its data axis splits the work (see the module's
+    docstring); every call returns, on every rank, what one device's
+    returns.
     """
 
     def __init__(self, wts_path, norm_path, device="cuda", context: int = 7,
                  postprocess: bool = False, smooth: bool = False,
                  smooth_strength=None, sample_rate: int = 16000,
-                 blend=0.0, compute_dtype=torch.float32):
-        self.device = resolve_device(device)
+                 blend=0.0, compute_dtype=torch.float32, mesh=None):
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.model = params_from_numpy(read_wts(wts_path), self.device)
         self.cast_weights = (
@@ -265,10 +298,38 @@ class Enhancer:
                             self.frame_shift, self.context, self.blend,
                             self.compute_dtype, self.cast_weights)
 
+    def _frame_block(self, t: int) -> tuple[int, int, int, int]:
+        """This rank's frames [lo, hi) of a T-frame utterance (a multiple
+        of the data axis' size past T) and the frames [w_lo, w_hi) its
+        splice reads (at least one, so a block past the end reads the
+        last)."""
+        half = (self.context - 1) // 2
+        per = -(-t // self.mesh.data)
+        lo = self.mesh.data_rank * per
+        hi = lo + per
+        w_lo = min(max(lo - half, 0), t - 1)
+        return lo, hi, w_lo, max(min(hi + half, t), w_lo + 1)
+
+    def _enhance_block(self, lps: torch.Tensor, t: int,
+                       block: tuple) -> torch.Tensor:
+        """A rank's block of a T-frame utterance -> the whole enhanced LPS
+        [T, bins], all-gathered over the data axis."""
+        lo, hi, w_lo, _ = block
+        out = _enhance_lps(self.model, lps[None], self.mean, self.inv_std,
+                           torch.tensor([t], device=self.device),
+                           self.context, self.blend, self.compute_dtype,
+                           self.cast_weights, (w_lo, lo, hi), self.mesh)
+        return self.mesh.all_gather(out[0], 0, "data")[:t]
+
     @torch.inference_mode()
     def enhance_lps(self, lps: np.ndarray) -> np.ndarray:
         """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins]."""
-        n_valid = torch.tensor([lps.shape[0]], device=self.device)
+        t = lps.shape[0]
+        if self.mesh is not None and t:
+            block = self._frame_block(t)
+            return self._enhance_block(self._tensor(lps[block[2]:block[3]]),
+                                       t, block).cpu().numpy()
+        n_valid = torch.tensor([t], device=self.device)
         out = _enhance_lps(self.model, self._tensor(lps)[None], self.mean,
                            self.inv_std, n_valid, self.context, self.blend,
                            self.compute_dtype, self.cast_weights)
@@ -284,6 +345,8 @@ class Enhancer:
         the forward pass and synthesis.
         """
         if not (self.smooth or self.postprocess):
+            if self.mesh is not None:
+                return self._decode_utterance(noisy_wave)
             return self._decode_waves([noisy_wave])[0]
         frames = frame_signal(noisy_wave, self.frame_length,
                               self.frame_shift)
@@ -316,6 +379,49 @@ class Enhancer:
             return [self.enhance(w) for w in waves]
         return self._decode_waves(waves)
 
+    def _empty(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return (np.zeros(0, np.int16),
+                np.zeros((0, self.frame_length), np.float32),
+                np.zeros((0, self.frame_length // 2 + 1), np.float32))
+
+    def _decode_utterance(self, wave: np.ndarray):
+        """``enhance``'s fused decode under a mesh: this rank's block of the
+        frames through the LPS and the network, the blocks all-gathered,
+        then the synthesis of the whole utterance."""
+        frames = self._tensor(frame_signal(wave, self.frame_length,
+                                           self.frame_shift))
+        t = frames.shape[0]
+        if t == 0:
+            return self._empty()
+        block = self._frame_block(t)
+        lps = lps_from_frames(frames[block[2]:block[3]], basis=self.basis)
+        enh = self._enhance_block(lps, t, block)
+        out, recon = _synth_and_ola(enh, frames,
+                                    torch.ones(t, device=self.device),
+                                    self.frame_shift, window=self.window)
+        n = t * self.frame_shift + self.frame_length - self.frame_shift
+        return (np.trunc(out.cpu().numpy()[:n]).astype(np.int16),
+                recon.cpu().numpy(), enh.cpu().numpy())
+
+    def _my_rows(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
+        """Under a mesh, this data index's block of rows of each tensor,
+        after zero rows pad the batch to a multiple of the data axis."""
+        if self.mesh is None:
+            return list(tensors)
+        b = tensors[0].shape[0]
+        per = -(-b // self.mesh.data)
+        lo = self.mesh.data_rank * per
+        return [torch.cat([t, t.new_zeros((per * self.mesh.data - b,)
+                                          + t.shape[1:])])[lo:lo + per]
+                for t in tensors]
+
+    def _all_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """The inverse of ``_my_rows``: the blocks of the data axis joined,
+        cut back to the batch's ``b`` rows."""
+        if self.mesh is None:
+            return t
+        return self.mesh.all_gather(t, 0, "data")[:b]
+
     def _decode_waves(self, waves: list
                       ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """The fused decode of B waves, padded to the longest utterance;
@@ -323,17 +429,17 @@ class Enhancer:
         frames = [frame_signal(w, self.frame_length, self.frame_shift)
                   for w in waves]
         ts = [f.shape[0] for f in frames]
-        empty = (np.zeros(0, np.int16),
-                 np.zeros((0, self.frame_length), np.float32),
-                 np.zeros((0, self.frame_length // 2 + 1), np.float32))
+        empty = self._empty()
         if max(ts, default=0) == 0:
             return [empty for _ in waves]
         frames_b = np.zeros((len(waves), max(ts), self.frame_length),
                             dtype=np.float32)
         for i, f in enumerate(frames):
             frames_b[i, : ts[i]] = f
-        wave_b, recon_b, enh_b = self._decode(
-            self._tensor(frames_b), torch.tensor(ts, device=self.device))
+        outs = self._decode(*self._my_rows(
+            self._tensor(frames_b), torch.tensor(ts, device=self.device)))
+        wave_b, recon_b, enh_b = (self._all_rows(o, len(waves))
+                                  for o in outs)
         wave_b = wave_b.cpu().numpy()
         recon_b, enh_b = recon_b.cpu().numpy(), enh_b.cpu().numpy()
         tail = self.frame_length - self.frame_shift
@@ -349,14 +455,17 @@ class Enhancer:
 
         Framing uses frame_length == 2 * shift (the ETSI 50 %-overlap
         config, ``Wav2LogSpec_be.c:43,49``): each frame joins two adjacent
-        shift-sized blocks.
+        shift-sized blocks.  Under a mesh each data index decodes its block
+        of the batch and every rank returns the whole batch.
         """
+        b = waves.shape[0]
+        waves, n_valid = self._my_rows(waves, n_valid)
         w = waves.to(torch.float32)
-        b, s = w.shape
-        blocks = w.reshape(b, s // self.frame_shift, self.frame_shift)
+        blocks = w.reshape(w.shape[0], w.shape[1] // self.frame_shift,
+                           self.frame_shift)
         frames = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
         wave, _, _ = self._decode(frames, n_valid)
-        return trunc_int16(wave)
+        return self._all_rows(trunc_int16(wave), b)
 
     def enhance_batch_waves(self, waves: list) -> list[np.ndarray]:
         """B int16 waves -> B enhanced int16 waves (serving fast path).
@@ -393,12 +502,30 @@ def enhance_utterance(wts_path, norm_path, noisy_wave: np.ndarray,
                     compute_dtype=compute_dtype).enhance(noisy_wave)[0]
 
 
+def _quiet(line: str) -> None:
+    pass
+
+
+def _write_info(out_dir: str, stem: str, path: str, info: dict,
+                noisy_info: bool) -> None:
+    """``<stem>.info.txt`` as ``LPS2Wav_be`` writes it and, with
+    ``noisy_info``, the noisy baseline's ``<input-filename>.info``."""
+    with open(os.path.join(out_dir, stem + ".info.txt"), "w") as f:
+        f.write("Segmental SNR:\n%f\n" % info["segsnr"])
+        f.write("Log-Spectral Distortion:\n%f\n" % info["lsd"])
+    if noisy_info:
+        ni_name = os.path.basename(path) + ".info"
+        with open(os.path.join(out_dir, ni_name), "w") as f:
+            f.write("Segmental SNR:\n%f\n" % info["segsnr_noisy"])
+            f.write("Log-Spectral Distortion:\n%f\n" % info["lsd_noisy"])
+
+
 def decode_files(wts_path, norm_path, wav_paths: list, out_dir,
                  clean_paths: list | None = None, log=print,
                  noisy_info: bool = False, batch_size: int = 0,
                  postprocess: bool = False, smooth: bool = False,
                  smooth_strength=None, sample_rate: int = 16000,
-                 blend=0.0, device="cuda") -> list[dict]:
+                 blend=0.0, device="cuda", mesh=None) -> list[dict]:
     """decode.m batch loop: enhance each wav, write *_enhanced.wav + info.
 
     With ``clean_paths``, per-utterance SegSNR/LSD (enhanced and noisy
@@ -408,12 +535,20 @@ def decode_files(wts_path, norm_path, wav_paths: list, out_dir,
     ``LogSpec2Wav.c:843-861``).  ``batch_size`` > 1 decodes that many
     utterances per device pass (the int16 fast path when no metrics are
     needed); the default streams one utterance at a time.
+
+    ``mesh``: every rank runs the loop (``Enhancer(mesh=)`` splits each
+    utterance, or each batch, over the data axis) and returns the results;
+    rank 0 alone writes the files and logs.
     """
-    os.makedirs(out_dir, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+    else:
+        log = _quiet
     enh = Enhancer(wts_path, norm_path, device=device,
                    postprocess=postprocess, smooth=smooth,
                    smooth_strength=smooth_strength,
-                   sample_rate=sample_rate, blend=blend)
+                   sample_rate=sample_rate, blend=blend, mesh=mesh)
     norm_sr = 11000 if sample_rate == 11025 else sample_rate
 
     def check_rate(path, sr):
@@ -443,21 +578,15 @@ def decode_files(wts_path, norm_path, wav_paths: list, out_dir,
                                 else enh.enhance(noisy))
         stem = os.path.splitext(os.path.basename(str(path)))[0]
         out_path = os.path.join(out_dir, stem + "_enhanced.wav")
-        write_wav(out_path, wave, sr)
         info = {"wav": str(path), "out": out_path}
+        if writer:
+            write_wav(out_path, wave, sr)
         if clean_paths is not None:
             clean, _ = read_wav(clean_paths[i])
             info.update(segsnr_lsd_pair(clean, noisy, recon,
                                         _exp_floored(enh_lps), sample_rate))
-            with open(os.path.join(out_dir, stem + ".info.txt"), "w") as f:
-                f.write("Segmental SNR:\n%f\n" % info["segsnr"])
-                f.write("Log-Spectral Distortion:\n%f\n" % info["lsd"])
-            if noisy_info:
-                ni_name = os.path.basename(str(path)) + ".info"
-                with open(os.path.join(out_dir, ni_name), "w") as f:
-                    f.write("Segmental SNR:\n%f\n" % info["segsnr_noisy"])
-                    f.write("Log-Spectral Distortion:\n%f\n"
-                            % info["lsd_noisy"])
+            if writer:
+                _write_info(out_dir, stem, str(path), info, noisy_info)
             log(f"{stem}: segsnr={info['segsnr']:.2f} "
                 f"(noisy {info['segsnr_noisy']:.2f}) "
                 f"lsd={info['lsd']:.2f} (noisy {info['lsd_noisy']:.2f})")

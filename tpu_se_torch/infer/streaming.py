@@ -28,6 +28,12 @@ What differs from the JAX module, and why:
   with ``graph=False``, the same step runs eagerly.
 - ``n_streams`` independent channels are batched on the leading axis; no
   decision inside a step is taken on the host, so the streams may differ.
+- Under a mesh (``mesh=``, one process per device) the channels split over
+  the ``data`` axis, as the reference shards them: a rank holds the state
+  of its ``n_streams / data`` channels and its own captured graphs at
+  that size, steps its rows of every hop and all-gathers the outputs, so
+  every rank returns the ``[S, ...]`` that one process returns.  The
+  channels never interact: the gather is the only collective.
 """
 
 from __future__ import annotations
@@ -326,6 +332,10 @@ class StreamingEnhancer:
     ``compute_dtype`` (``torch.float32``, ``torch.bfloat16`` or their names)
     is the type of the network's product operands; the reduced copy of the
     frozen weights is made once, here, and the captured step reads it.
+    ``mesh`` (a ``tpu_se_torch.parallel.Mesh``; every rank makes the same
+    calls): the channels split over its data axis (see the module's
+    docstring), on the mesh's device; ``n_streams`` must divide by the
+    data axis' size.
     """
 
     SCAN_HOPS = 8  # hops per chunk that feed() sends through push_many()
@@ -333,8 +343,14 @@ class StreamingEnhancer:
     def __init__(self, wts_path, norm_path, n_streams: int = 1,
                  context: int = 7, sample_rate: int = 16000, blend=0.0,
                  smooth_strength=None, device="cuda", graph: bool = True,
-                 compute_dtype=torch.float32):
-        self.device = resolve_device(device)
+                 compute_dtype=torch.float32, mesh=None):
+        data = 1 if mesh is None else mesh.data
+        if n_streams % data:
+            raise ValueError(f"n_streams {n_streams} not divisible by mesh "
+                             f"data axis {data}")
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.blend = _check_blend(blend)
         # As the batch Enhancer resolves it: a non-zero strength turns the
@@ -364,11 +380,15 @@ class StreamingEnhancer:
         self.half = (context - 1) // 2
         self.ring_hops = _ring_hops(self.frame_length, self.frame_shift)
         self.n_streams = n_streams
+        # This rank's channels: all of them without a mesh.
+        local = n_streams // data
+        lo = 0 if mesh is None else mesh.data_rank * local
+        self._mine = slice(lo, lo + local)
         # Allocated once: the step writes into these, never rebinds them.
-        self.state = _init_state(n_streams, self.frame_length,
+        self.state = _init_state(local, self.frame_length,
                                  self.frame_shift, self.n_bins, context,
                                  self.device)
-        hop_shape = (n_streams, self.frame_shift)
+        hop_shape = (local, self.frame_shift)
         self._hop = torch.zeros(hop_shape, device=self.device)
         self._out = torch.zeros(hop_shape, device=self.device)
         self._out_i16 = torch.zeros(hop_shape, dtype=torch.int16,
@@ -383,7 +403,7 @@ class StreamingEnhancer:
     def reset(self) -> None:
         """Back to the start of a stream, in the same tensors (and so under
         the same captured graphs): every channel forgets its input."""
-        fresh = _init_state(self.n_streams, self.frame_length,
+        fresh = _init_state(self._hop.shape[0], self.frame_length,
                             self.frame_shift, self.n_bins, self.context,
                             self.device)
         for dst, src in zip(self.state, fresh):
@@ -431,7 +451,11 @@ class StreamingEnhancer:
             hops_replayed += 1
 
     def _host(self, tensor: torch.Tensor) -> np.ndarray:
-        """A host copy that the next step will not overwrite."""
+        """All channels' rows of ``tensor`` (all-gathered over the data
+        axis under a mesh) as a host copy that the next step will not
+        overwrite."""
+        if self.mesh is not None:
+            tensor = self.mesh.all_gather(tensor, 0, "data")
         if tensor.device.type == "cpu":
             return tensor.numpy().copy()
         return tensor.cpu().numpy()
@@ -455,10 +479,12 @@ class StreamingEnhancer:
         """[S, shift] float32 hops -> [S, shift] float32 enhanced hop, or
         ``None`` during the first ``warmup_hops - 1`` calls."""
         hops = np.asarray(hops, dtype=np.float32)
-        if hops.shape != tuple(self._hop.shape):
+        if hops.shape != (self.n_streams, self.frame_shift):
             raise ValueError(f"push wants hops of shape "
-                             f"{tuple(self._hop.shape)}, got {hops.shape}")
-        self._hop.copy_(torch.from_numpy(np.ascontiguousarray(hops)))
+                             f"{(self.n_streams, self.frame_shift)}, got "
+                             f"{hops.shape}")
+        self._hop.copy_(torch.from_numpy(
+            np.ascontiguousarray(hops[self._mine])))
         self._run_step()
         self._hops += 1
         if self._hops >= self.ring_hops:
@@ -478,15 +504,15 @@ class StreamingEnhancer:
         anyway), half the bytes per chunk; the enhanced hops come back
         int16, the truncated values of the float32 wire's.
         """
-        hops = np.ascontiguousarray(
-            hops, dtype=np.int16 if int16_wire else np.float32)
+        hops = np.asarray(hops, dtype=np.int16 if int16_wire else np.float32)
         if (hops.ndim != 3 or (hops.shape[0], hops.shape[2])
-                != tuple(self._hop.shape)):
+                != (self.n_streams, self.frame_shift)):
             raise ValueError(f"push_many wants [{self.n_streams}, K, "
                              f"{self.frame_shift}] hops, got {hops.shape}")
         k = hops.shape[1]
         h0 = self._hops
-        chunk = torch.from_numpy(hops).to(self.device)
+        chunk = torch.from_numpy(
+            np.ascontiguousarray(hops[self._mine])).to(self.device)
         outs = torch.empty_like(chunk)
         emitted = self._out_i16 if int16_wire else self._out
         for j in range(k):

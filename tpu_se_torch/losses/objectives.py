@@ -11,9 +11,9 @@ Port of ``tpu_se/losses/objectives.py`` (reference
   |e_md|^beta)^(1/beta)``, then ``beta * sign(e) * |e|^(beta-1) /
   alpha_d^beta``.  ``output_grad_and_alpha(ml=True)`` runs the fused Hopper
   kernel (``tpu_se_torch.ops.ggd_kernel``) on a CUDA tensor, and the plain
-  composition of ``ggd_alpha`` and ``ggd_grad`` on a CPU one.  Under a data
-  mesh alpha is a statistic of the GLOBAL bunch: the kernel runs in its
-  split form, the ranks' column sums all-reduced between its two launches.
+  composition of ``ggd_alpha`` and ``ggd_grad`` on a CPU one.  Under a mesh
+  alpha is a statistic of the GLOBAL bunch: the kernel runs in its split
+  form, the data axis' column sums all-reduced between its two launches.
 
 Both gradients carry the loss-side 1/M (``DevVecMulNum``); the optimizer
 divides by M again in parity mode.  ``ggd_loglik`` and ``ref_gamma`` are
@@ -70,12 +70,14 @@ def output_grad_and_alpha(out: torch.Tensor, targ: torch.Tensor, beta: float,
     cannot); on a CPU tensor it runs the kernel's plain version.
 
     With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``out`` and ``targ``
-    are this rank's M / size rows of the bunch: the column sums of
-    |e|^beta are added over the ranks (one all-reduce of D floats), alpha
-    is the global bunch's on every rank, and the 1/M is the global M's.
-    The beta-norm needs no statistic, only that 1/M.
+    are this rank's M / data rows of the bunch: the column sums of
+    |e|^beta are added over the data axis (one all-reduce of D floats),
+    alpha is the global bunch's on every rank, and the 1/M is the global
+    M's.  The ranks of a model line hold the same output bits and compute
+    the same sums, so nothing crosses the model axis.  The beta-norm needs
+    no statistic, only that 1/M.
     """
-    m_global = out.shape[0] * (1 if mesh is None else mesh.size)
+    m_global = out.shape[0] * (1 if mesh is None else mesh.data)
     if ml:
         # Imported here: the kernel module's plain versions are built from
         # this module's functions.
@@ -93,7 +95,7 @@ def output_grad_and_alpha(out: torch.Tensor, targ: torch.Tensor, beta: float,
             if on_card else
             (ggd_kernel.ggd_colsum_plain,
              ggd_kernel.ggd_grad_from_sums_plain))
-        sums = mesh.all_reduce_sum(colsum(out, targ, beta))
+        sums = mesh.all_reduce_sum(colsum(out, targ, beta), "data")
         return from_sums(out, targ, sums, m_global, beta)
     alpha = torch.ones(out.shape[1], dtype=out.dtype, device=out.device)
     return beta_norm_grad(out, targ, beta) / m_global, alpha

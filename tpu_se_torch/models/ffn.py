@@ -65,7 +65,8 @@ class _ReducedLinear(torch.autograd.Function):
         ctx.save_for_backward(h_c, w_c)
         ctx.dtype = dtype
         ctx.h_dtype = h.dtype
-        return reduced_product(h_c, w_c).add_(b)
+        z = reduced_product(h_c, w_c)
+        return z if b is None else z.add_(b)
 
     @staticmethod
     def backward(ctx, g):
@@ -81,15 +82,52 @@ class _ReducedLinear(torch.autograd.Function):
         return dh, dw, db, None, None
 
 
-def reduced_linear(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def reduced_linear(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
                    dtype: torch.dtype,
                    w_cast: torch.Tensor | None = None) -> torch.Tensor:
     """One layer's ``z`` [M, n_out] (float32) from ``h`` [M, n_in], the
     float32 master weight ``w`` [n_in, n_out] and bias ``b``, with the
     product's operands in ``dtype``.  ``w_cast`` is ``w.to(dtype)`` made
     beforehand, for callers whose weights are frozen; without it the cast
-    is made here, once per call, and kept for the backward pass."""
+    is made here, once per call, and kept for the backward pass.
+    ``b=None`` gives the bare product (a row-parallel layer's partial
+    ``z``, whose bias is added after the sum over the model axis)."""
     return _ReducedLinear.apply(h, w, b, dtype, w_cast)
+
+
+def linear(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+           compute_dtype: torch.dtype = torch.float32,
+           w_cast: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer's float32 ``z = h @ w (+ b)`` with the products' operands
+    in ``compute_dtype``: ``torch.addmm`` (``torch.mm`` without a bias) in
+    float32, ``reduced_linear`` otherwise."""
+    if compute_dtype == torch.float32:
+        # .float() is the tensor itself unless act_dtype made it narrower.
+        if b is None:
+            return torch.mm(h.float(), w)
+        return torch.addmm(b, h.float(), w)
+    return reduced_linear(h, w, b, compute_dtype, w_cast)
+
+
+def input_dropout(h: torch.Tensor, p: float, generator: torch.Generator,
+                  rows: tuple | None = None,
+                  cols: tuple | None = None) -> torch.Tensor:
+    """The reference's inverted input dropout (``BP_GPU.cu:344-356``): each
+    value of ``h`` is zeroed with probability ``p`` and the kept ones are
+    scaled by 1/(1-p).
+
+    ``rows=(lo, m_global)`` says that ``h`` holds rows [lo, lo + M) of a
+    bunch of ``m_global`` rows, and ``cols=(k, n)`` that it holds the k-th
+    of n equal blocks of columns: the mask of the whole bunch at full width
+    is drawn from ``generator`` and this block of it is kept, so ranks that
+    share the generator's seed draw together what one process draws.
+    """
+    m, width = h.shape
+    lo, m_global = (0, m) if rows is None else rows
+    k, n = (0, 1) if cols is None else cols
+    draw = torch.rand((m_global, width * n), generator=generator,
+                      device=h.device)[lo:lo + m, k * width:(k + 1) * width]
+    return torch.where(draw < 1.0 - p, h / (1.0 - p), 0.0)
 
 
 def init_params(seed: int, layersizes=DEFAULT_LAYERSIZES,
@@ -191,24 +229,9 @@ class FFN(nn.Module):
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
             p = 0.0 if dropout is None else dropout[0 if i == 0 else 1]
             if p > 0.0:
-                if dropout_rows is None:
-                    draw = torch.rand(h.shape, generator=generator,
-                                      device=h.device)
-                else:
-                    lo, m_global = dropout_rows
-                    draw = torch.rand((m_global, h.shape[1]),
-                                      generator=generator,
-                                      device=h.device)[lo:lo + h.shape[0]]
-                keep = draw < 1.0 - p
-                h = torch.where(keep, h / (1.0 - p), 0.0)
-            if compute_dtype == torch.float32:
-                # .float() is the tensor itself unless act_dtype made it
-                # narrower.
-                z = torch.addmm(b, h.float(), w)
-            else:
-                z = reduced_linear(h, w, b, compute_dtype,
-                                   None if cast_weights is None
-                                   else cast_weights[i])
+                h = input_dropout(h, p, generator, dropout_rows)
+            z = linear(h, w, b, compute_dtype,
+                       None if cast_weights is None else cast_weights[i])
             h = act(z) if i < last else z
             if act_dtype is not None and i < last:
                 h = h.to(act_dtype)

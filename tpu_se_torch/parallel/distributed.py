@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_se_torch.data.pipeline import shard_for_host
+from tpu_se_torch.utils.device import resolve_device
 
 # A dead peer ends a run after this long instead of hanging it.
 DEFAULT_TIMEOUT_S = 300.0
@@ -72,7 +73,7 @@ def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None,
                            cpu_collectives: str | None = None,
-                           device="cpu",
+                           device="cuda",
                            timeout: float = DEFAULT_TIMEOUT_S) -> dict:
     """Join the ``torch.distributed`` group when ``coordinator_address``
     (``"host:port"`` of rank 0) is given; no-op otherwise.
@@ -86,10 +87,12 @@ def initialize_distributed(coordinator_address: str | None = None,
 
     Returns the reference's summary (``process_index``, ``process_count``,
     ``local_devices``, ``global_devices``) plus this rank's ``device`` and
-    the ``backend`` (``None`` without a group).
+    the ``backend`` (``None`` without a group).  ``device`` is ``"cuda"``
+    unless the caller asks for the CPU; a CUDA request without a card
+    raises (``resolve_device``).
     """
-    device = torch.device(device)
     if coordinator_address is None:
+        device = resolve_device(device)
         n_local = (torch.cuda.device_count() if device.type == "cuda" else 1)
         return {"process_index": 0, "process_count": 1,
                 "local_devices": n_local, "global_devices": n_local,
@@ -108,8 +111,8 @@ def initialize_distributed(coordinator_address: str | None = None,
     if not host or not port.isdigit():
         raise ValueError(f"initialize_distributed: coordinator "
                          f"{coordinator_address!r} is not host:port")
-    backend = collective_backend(device, cpu_collectives)
-    device = rank_device(device, process_id)
+    backend = collective_backend(torch.device(device), cpu_collectives)
+    device = rank_device(resolve_device(device), process_id)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     limit = datetime.timedelta(seconds=timeout)

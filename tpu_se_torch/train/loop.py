@@ -1,7 +1,7 @@
 """The epoch loop: the ``finetune.pl`` + ``BPtrain.cc`` equivalent.
 
-Port of ``tpu_se/train/loop.py``, for one device or a data mesh of them
-(one process per device, ``tpu_se_torch.parallel``).  Epoch protocol
+Port of ``tpu_se/train/loop.py``, for one device or a mesh of them (one
+process per device, ``tpu_se_torch.parallel``).  Epoch protocol
 (``finetune.pl:10-155``, ``BPtrain.cc:55-146``):
 
 - epoch N trains from epoch N-1's weights; lr constant for epochs 1..10,
@@ -16,13 +16,16 @@ Port of ``tpu_se/train/loop.py``, for one device or a data mesh of them
 The shuffles come from the same ``np.random.Generator`` draws as in
 ``tpu_se``, so both packages train on the same bunches in the same order.
 
-Data parallel (``TrainConfig.coordinator`` or ``TrainConfig.mesh``): every
-rank runs the same schedule and draws the same shuffles; a rank trains its
-M / P rows of every bunch (``train_chunk(mesh=)``), reads 1 / P of the
-resident span from storage, and runs the whole CV.  Only rank 0 writes
-``.wts``, partial checkpoints and logs; a barrier after each epoch keeps
-resume-by-existence consistent on shared storage, and there the ranks
-compare their weights and raise if the replicas have drifted apart.
+Under a mesh (``TrainConfig.coordinator`` or ``TrainConfig.mesh``, data x
+model ranks): every rank runs the same schedule and draws the same
+shuffles; a rank trains the M / data rows of its data index of every bunch
+(``train_chunk(mesh=)``) on its ``TensorParallelFFN`` shard of the model
+(the whole model with a model axis of one), reads 1 / P of the resident
+span from storage, and runs the whole CV.  Only rank 0 writes ``.wts``,
+partial checkpoints and logs, of whole tensors gathered over the model
+axis; a barrier after each epoch keeps resume-by-existence consistent on
+shared storage, and there the ranks compare their replicas and shards and
+raise if they have drifted apart.
 """
 
 from __future__ import annotations
@@ -38,10 +41,10 @@ import numpy as np
 import torch
 
 from tpu_se_torch.data import PfilePairDataset, PrefetchIterator
-from tpu_se_torch.io import atomic_write
+from tpu_se_torch.io import atomic_write, read_wts
 from tpu_se_torch.losses import ref_gamma
 from tpu_se_torch.models import (
-    DEFAULT_LAYERSIZES, init_params, init_params_uniform, params_from_numpy,
+    DEFAULT_LAYERSIZES, init_params, init_params_uniform,
 )
 from tpu_se_torch.ops import ggd_kernel
 from tpu_se_torch.parallel import (
@@ -49,10 +52,11 @@ from tpu_se_torch.parallel import (
     shard_train_args, shutdown_distributed, sync_processes,
 )
 from tpu_se_torch.parallel.distributed import allgather_rows
-from tpu_se_torch.parallel.mesh import (
-    MODEL_AXIS_MESSAGE, check_mesh_devices, free_port,
+from tpu_se_torch.parallel.mesh import AXES, check_mesh_devices, free_port
+from tpu_se_torch.parallel.tensor import check_model_split
+from tpu_se_torch.train.checkpoint import (
+    load_checkpoint, model_from_layers, save_checkpoint,
 )
-from tpu_se_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpu_se_torch.train.step import (
     TrainHyper, TrainState, cv_chunk_metrics, make_train_state, train_chunk,
 )
@@ -68,12 +72,14 @@ class TrainConfig:
     Checkpoints and ``.wts`` files are float32 whatever ``compute_dtype``
     says.
 
-    Data parallel, one process per device.  Set ``coordinator``
+    Data and tensor parallel, one process per device.  Set ``coordinator``
     (``"host:port"`` of rank 0), ``num_processes`` and ``process_id`` on
     every rank to join a ``torch.distributed`` group: NCCL for a CUDA
     device, gloo for the CPU, gloo for both with
-    ``cpu_collectives="gloo"``.  Or set ``mesh=MeshConfig(data=N)`` alone
-    and ``run_training`` starts the N ranks of this host itself."""
+    ``cpu_collectives="gloo"``; ``mesh=MeshConfig(data, model)`` then names
+    the model axis (the data axis is the rest of the group).  Or set
+    ``mesh`` alone and ``run_training`` starts the data x model ranks of
+    this host itself."""
 
     fea_file: str = ""
     targ_file: str = ""
@@ -134,6 +140,12 @@ class TrainConfig:
 
     def seed_for_epoch(self, epoch: int) -> int:
         return self.init_seed + self.seed_increment * (epoch - 1)
+
+
+def model_sizes(layers: list[dict]) -> tuple:
+    """The layer sizes of whole numpy layers (``read_wts``'s)."""
+    return (layers[0]["w"].shape[0], *(layer["w"].shape[1]
+                                       for layer in layers))
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -280,16 +292,18 @@ def evaluate_cv(state: TrainState, cv_dataset: PfilePairDataset,
             "cv_ggd_loglik": loglik, "cv_frames": n_total}
 
 
-def _initial_state(cfg: TrainConfig, device) -> TrainState:
+def _initial_state(cfg: TrainConfig, device, mesh: Mesh | None
+                   ) -> TrainState:
     if cfg.init_wts_file:
-        return load_checkpoint(cfg.init_wts_file, device, cfg.activation)
+        return load_checkpoint(cfg.init_wts_file, device, cfg.activation,
+                               mesh)
     if cfg.init_ranges is not None:
         layers = init_params_uniform(cfg.seed_for_epoch(1), cfg.layersizes,
                                      *cfg.init_ranges)
     else:
         layers = init_params(cfg.seed_for_epoch(1), cfg.layersizes)
-    return make_train_state(params_from_numpy(layers, device,
-                                              activation=cfg.activation))
+    return make_train_state(model_from_layers(layers, device, cfg.activation,
+                                              mesh))
 
 
 class _SilentEpochLogger:
@@ -309,20 +323,22 @@ def _local_rank(rank: int, cfg: TrainConfig, device_name: str,
                 port: int) -> None:
     """One rank of a one-host mesh, in its own spawned process."""
     cfg = replace(cfg, coordinator=f"127.0.0.1:{port}",
-                  num_processes=cfg.mesh.data, process_id=rank)
+                  num_processes=cfg.mesh.n_devices, process_id=rank)
     run_training(cfg, device_name,
                  log=print if rank == 0 else lambda line: None)
 
 
 def _run_local_mesh(cfg: TrainConfig, device: torch.device, log) -> str:
-    """``mesh=MeshConfig(data=N)`` without a coordinator: start the N ranks
-    of this host (rank k on card k, or N CPU ranks) and wait for them.
-    Rank 0 prints the run's lines; the others stay quiet."""
+    """``mesh=MeshConfig(data, model)`` without a coordinator: start the
+    data x model ranks of this host (rank k on card k, or CPU ranks) and
+    wait for them.  Rank 0 prints the run's lines; the others stay
+    quiet."""
     if device.type == "cuda":
         check_mesh_devices(cfg.mesh.data, cfg.mesh.model,
                            torch.cuda.device_count())
-    log(f"data mesh: starting {cfg.mesh.data} local ranks on {device.type}")
-    launch_local_ranks(_local_rank, cfg.mesh.data,
+    log(f"data mesh: starting {cfg.mesh.n_devices} local ranks on "
+        f"{device.type}")
+    launch_local_ranks(_local_rank, cfg.mesh.n_devices,
                        (cfg, device.type, free_port()))
     return os.path.join(cfg.out_dir, f"mlp.{cfg.epochs}.wts")
 
@@ -332,26 +348,32 @@ def run_training(cfg: TrainConfig, device, log=print) -> str:
     .wts path.  ``device`` is ``"cuda"`` or ``"cpu"`` (``resolve_device``:
     a CUDA request without a card raises).
 
-    With ``cfg.coordinator`` this process is one rank of a data mesh (see
+    With ``cfg.coordinator`` this process is one rank of a mesh (see
     ``TrainConfig``); it leaves the process group when the schedule ends,
     also on an exception.  With ``cfg.mesh`` alone the ranks are started
-    here.  A mesh of one rank still takes the data-parallel step (the
-    split GGD kernel and the collectives), with one device's bits."""
+    here.  A mesh of one rank still takes the mesh's step (the split GGD
+    kernel, the collectives, the sharded model's code), with one device's
+    bits."""
     device = resolve_device(device)
     if cfg.mesh is not None and cfg.mesh.model > 1:
-        raise NotImplementedError(MODEL_AXIS_MESSAGE)
+        check_model_split(
+            model_sizes(read_wts(cfg.init_wts_file)) if cfg.init_wts_file
+            else cfg.layersizes, cfg.mesh.model)
     if not cfg.coordinator:
-        if cfg.mesh is not None and cfg.mesh.data > 1:
+        if cfg.mesh is not None and cfg.mesh.n_devices > 1:
             return _run_local_mesh(cfg, device, log)
         return _run_schedule(cfg, device, None, log)
     info = initialize_distributed(
         cfg.coordinator, cfg.num_processes, cfg.process_id,
         cfg.cpu_collectives or None, device)
     try:
-        mesh = make_mesh(cfg.mesh.data if cfg.mesh is not None else None, 1,
-                         info["device"])
-        log(f"data mesh: data={mesh.size}, rank {mesh.rank} on "
-            f"{mesh.device} ({mesh.backend})")
+        # Under a coordinator the data axis is the rest of the group.
+        mesh = make_mesh(
+            cfg.mesh.data if cfg.mesh is not None and cfg.mesh.data > 1
+            else None, cfg.mesh.model if cfg.mesh is not None else 1,
+            info["device"])
+        log(f"data mesh: data={mesh.data}, model={mesh.model}, rank "
+            f"{mesh.rank} on {mesh.device} ({mesh.backend})")
         return _run_schedule(cfg, mesh.device, mesh, log)
     finally:
         shutdown_distributed()
@@ -361,9 +383,9 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
                   log) -> str:
     is_main = mesh is None or mesh.rank == 0
     replica_checks = 0
-    if mesh is not None and cfg.bunchsize % mesh.size != 0:
+    if mesh is not None and cfg.bunchsize % mesh.data != 0:
         raise ValueError(f"bunchsize {cfg.bunchsize} does not split evenly "
-                         f"over {mesh.size} ranks")
+                         f"over {mesh.data} ranks of the data axis")
     os.makedirs(cfg.out_dir, exist_ok=True)
     hyper = cfg.hyper()
 
@@ -399,10 +421,11 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
             continue
 
         if epoch == 1:
-            state = _initial_state(cfg, device)
+            state = _initial_state(cfg, device, mesh)
         else:
             if state is None:
-                state = load_checkpoint(last_path, device, cfg.activation)
+                state = load_checkpoint(last_path, device, cfg.activation,
+                                        mesh)
             if not cfg.carry_velocity:
                 state = make_train_state(state.model)
 
@@ -421,7 +444,7 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
                 start_chunk = int(meta["chunks_done"])
                 pp = f"{partial_stem}.{start_chunk}.wts"
                 if os.path.exists(pp):
-                    state = load_checkpoint(pp, device, cfg.activation)
+                    state = load_checkpoint(pp, device, cfg.activation, mesh)
                     log(f"epoch {epoch}: resuming mid-epoch at chunk "
                         f"{start_chunk} from {pp}")
                 else:
@@ -434,10 +457,10 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
 
         def save_partial(st, chunks_done, _epoch=epoch, _stem=partial_stem,
                          _mp=meta_path):
+            pp = f"{_stem}.{chunks_done}.wts"
+            save_checkpoint(pp, st, mesh=mesh)
             if not is_main:
                 return
-            pp = f"{_stem}.{chunks_done}.wts"
-            save_checkpoint(pp, st)
             atomic_write(_mp, lambda f: json.dump(
                 {"epoch": _epoch, "chunks_done": chunks_done}, f),
                 mode="w")   # the rename is the commit point
@@ -463,13 +486,13 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
                               device_frames=cv_frames)
         dt = time.time() - t0
         if mesh is not None:
-            mesh.check_replicas(list(state.model.parameters()),
-                                f"at the end of epoch {epoch}")
+            state.model.check_replicas(f"at the end of epoch {epoch}")
             replica_checks += 1
+        # Velocity resets each epoch under the parity schedule, so the
+        # sidecar only matters when it carries across epochs.
+        save_checkpoint(out_path, state, with_state=cfg.carry_velocity,
+                        mesh=mesh)
         if is_main:
-            # Velocity resets each epoch under the parity schedule, so the
-            # sidecar only matters when it carries across epochs.
-            save_checkpoint(out_path, state, with_state=cfg.carry_velocity)
             for p in partial_files():
                 os.remove(p)
         # No rank starts epoch N+1 (or, resuming, looks for this epoch's
@@ -484,7 +507,16 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
         log(f"data mesh: rank {mesh.rank} of {mesh.size} ({mesh.backend}): "
             f"ggd_colsum {ggd_kernel.colsum_launches} launches, "
             f"ggd_grad_from_sums {ggd_kernel.grad_from_sums_launches} "
-            f"launches, all_reduce {mesh.all_reduce_calls} calls "
-            f"{mesh.all_reduce_bytes} bytes, replicas equal at "
+            f"launches, {traffic_text(mesh)}, replicas equal at "
             f"{replica_checks} epoch ends")
     return last_path
+
+
+def traffic_text(mesh: Mesh) -> str:
+    """What this rank's collectives moved, per axis: ``data axis all_reduce
+    N calls B bytes all_gather N calls B bytes; model axis ...``."""
+    return "; ".join(
+        f"{axis} axis " + " ".join(
+            f"{op} {calls} calls {sent} bytes"
+            for op, (calls, sent) in mesh.traffic[axis].items())
+        for axis in AXES)

@@ -22,19 +22,24 @@ launches on the card:
   network's output, the GGD gradient, alpha, the velocity and the weights
   stay float32.
 - Partial bunches are dropped by the caller (``starts[: n_bunches*M]``).
-- Under a data mesh (``mesh=``, one rank per device) a rank takes M / P
+- Under a mesh (``mesh=``, one rank per device) a rank takes M / data
   rows of every bunch.  Where GSPMD turns the reference's batch reductions
-  into psums, the port writes them out, two collectives per bunch: the GGD
-  column sums (D floats) between the split kernel's two launches, so that
-  alpha is the global bunch's, and the gradients, flattened into one
-  buffer, after the backward pass.  Both are SUMS: the reference's explicit
-  1/M (the global M) is already in the cotangent, so nothing is averaged as
-  DistributedDataParallel would.  Every rank then applies the same update
-  to its replica.  With bfloat16 products each rank rounds its partial
-  ``dW`` to bfloat16 as one device does (``_ReducedLinear``) and the
-  all-reduce adds the rounded partials in float32: the rounding falls
-  before the sum, per rank, which is how the reference's narrowed
-  all-reduce reads.
+  into psums, the port writes them out over the data axis, two collectives
+  per bunch: the GGD column sums (D floats) between the split kernel's two
+  launches, so that alpha is the global bunch's, and the gradients,
+  flattened into one buffer, after the backward pass.  Both are SUMS: the
+  reference's explicit 1/M (the global M) is already in the cotangent, so
+  nothing is averaged as DistributedDataParallel would.  Every rank then
+  applies the same update to its replica.  With bfloat16 products each
+  rank rounds its partial ``dW`` to bfloat16 as one device does
+  (``_ReducedLinear``) and the all-reduce adds the rounded partials in
+  float32: the rounding falls before the sum, per rank, which is how the
+  reference's narrowed all-reduce reads.
+- With a model axis (``mesh.model > 1``) the state's model is this rank's
+  ``TensorParallelFFN`` shard, whose forward and backward passes carry the
+  model axis' collectives; the update applies to shards and replicated
+  tensors alike, since every rank of a model line holds the same bits in
+  what it replicates.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 
 from tpu_se_torch.losses import output_grad_and_alpha
 from tpu_se_torch.models import FFN
+from tpu_se_torch.parallel.tensor import TensorParallelFFN
 from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
 from tpu_se_torch.utils.device import resolve_compute_dtype
 
@@ -88,7 +94,7 @@ class TrainHyper:
 
 @dataclass
 class TrainState:
-    model: FFN                  # trained in place
+    model: FFN | TensorParallelFFN   # trained in place
     velocity: list              # [{"w", "b"}] tensors, like the params
     alpha: torch.Tensor         # last-bunch GGD scale factors [D]
 
@@ -127,12 +133,14 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     device) draws the dropout masks when ``hyper.dropout`` is set.  alpha
     after the call is the last bunch's.
 
-    With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``starts`` holds this
-    rank's columns ``[n_bunches, M / mesh.size]`` (``shard_train_args``);
-    the bunch's statistic and gradients are summed over the ranks and
-    every rank ends with the same weights.  Every rank draws the whole
-    bunch's dropout masks from the same seed and keeps its rows.
-    ``mesh=None`` is the one-device step, the fused GGD kernel included.
+    With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``starts`` holds the
+    columns ``[n_bunches, M / mesh.data]`` of this rank's data index
+    (``shard_train_args``); the bunch's statistic and gradients are summed
+    over the data axis and every rank ends with the same weights (or, with
+    ``mesh.model > 1``, the same shards as the other ranks of its model
+    index).  Every rank draws the whole bunch's dropout masks from the same
+    seed and keeps its rows (and columns).  ``mesh=None`` is the one-device
+    step, the fused GGD kernel included.
     """
     opt_n = hyper.bunchsize if hyper.grad_scale == "parity" else 1
     lr = float(np.float32(lr))
@@ -140,11 +148,14 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     dropout_rows = None
     if mesh is not None:
         rows = starts.shape[1]
-        if rows * mesh.size != hyper.bunchsize:
+        if rows * mesh.data != hyper.bunchsize:
             raise ValueError(f"rank {mesh.rank} of {mesh.size} got {rows} "
                              f"columns of starts for a bunch of "
                              f"{hyper.bunchsize}")
-        dropout_rows = (mesh.rank * rows, hyper.bunchsize)
+        if mesh.model > 1 and not isinstance(state.model, TensorParallelFFN):
+            raise ValueError(f"a mesh with a model axis of {mesh.model} "
+                             "trains a TensorParallelFFN (shard_params)")
+        dropout_rows = (mesh.data_rank * rows, hyper.bunchsize)
     layers = param_layers(state.model)
     params = [p for layer in layers for p in (layer["w"], layer["b"])]
     alpha = state.alpha
@@ -160,7 +171,7 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
                                                 hyper.beta, hyper.ml, mesh)
             grads = torch.autograd.grad(out, params, grad_outputs=dedx)
             if mesh is not None:
-                grads = mesh.all_reduce_sum_flat(grads)
+                grads = mesh.all_reduce_sum_flat(grads, "data")
             sgd_momentum_update(
                 layers, state.velocity,
                 [{"w": gw, "b": gb} for gw, gb in zip(grads[::2], grads[1::2])],
@@ -170,17 +181,19 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
 
 
 @torch.no_grad()
-def cv_forward(model: FFN, noisy: torch.Tensor, starts: torch.Tensor,
+def cv_forward(model: FFN | TensorParallelFFN, noisy: torch.Tensor, starts: torch.Tensor,
                context: int = 7,
                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Forward a batch of CV windows: [N] starts -> [N, out_dim] outputs.
-    As in the reference, CV takes ``compute_dtype`` but not ``act_dtype``."""
+    As in the reference, CV takes ``compute_dtype`` but not ``act_dtype``.
+    A ``TensorParallelFFN`` runs its sharded forward: every rank of the
+    mesh takes part, and every rank gets the same outputs."""
     return model(gather_splice(noisy, starts, context),
                  compute_dtype=compute_dtype)
 
 
 @torch.no_grad()
-def cv_chunk_metrics(model: FFN, noisy: torch.Tensor, clean: torch.Tensor,
+def cv_chunk_metrics(model: FFN | TensorParallelFFN, noisy: torch.Tensor, clean: torch.Tensor,
                      starts: torch.Tensor, alpha: torch.Tensor,
                      hyper: TrainHyper) -> torch.Tensor:
     """Device-side CV sums for one batch of windows -> float32 [3]:
