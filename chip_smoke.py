@@ -157,7 +157,41 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    LSB (bitwise by form reported), enhanced LPS within rtol 1e-5, atol
    1e-5, each rank's LPS launches equal to the one process's and 16 graph
    replays;
-14. prints the kernel table as JSON (each kernel's launches summed over
+14. host chunk loader phase (run after the training phase, at its
+   fixtures): compiles ``tpu_se_torch/csrc/chunk_loader.cc`` with the host
+   compiler (timed) and loads the library; reads, byte-swaps and
+   normalises the training span (noisy + clean) through the library and
+   through numpy, 5 times each (MB/s, median), the rows bit for bit
+   equal; trains 2 epochs per chunk (``device_resident="never"``) with
+   rows by each route, whose ``mlp.2.wts`` must be byte-identical (and is
+   compared with the resident run's); epoch samples/s per chunk by both
+   routes beside the resident epoch's;
+15. overlapped-step phase (after the data-parallel phase):
+   ``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
+   card, one epoch each from the same weights (bitwise, or the smoke
+   fails; one fused GGD launch per bunch); then, through
+   ``bench/dp_epoch.py --lrate 0.001 --out``, one process (flat step,
+   float32 and bfloat16) as the reference, and one rank over NCCL and two
+   ranks sharing the card over gloo, flat and ``--overlap``, one cluster
+   at a time (ms per bunch), each within 1e-3 of the reference's weight
+   changes, with one all-reduce per layer and bunch plus the column sums'
+   and two split GGD launches per bunch and rank; both overlapped forms
+   again, byte-identical; the bfloat16 ring on two gloo ranks and on one
+   NCCL rank (within the bfloat16 bar of the bfloat16 reference); the
+   first timed runs trace 8 bunches (``dp_epoch --profile``): the
+   backward products issued while each bunch's rings are in flight (two
+   per hidden layer overlapped, none flat), the us by which NCCL kernels
+   overlap GEMM kernels on the device, and where the host's time goes
+   (the host ops of most self time per bunch);
+16. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
+   the slice phase's longest utterance with its model (graph replays = hops
+   and two eager LPS calls per enhancer; the single stream as long as the
+   batch decode), and ``tpu_se_torch.examples.demo_pipeline`` at full
+   width, 40 epochs, on a synthetic 14-condition stand-in of the demo
+   corpus (``bench/fixtures.py:write_demo_corpus``): finite SegSNR, LSD
+   and STOI for the held-out condition, one LPS launch per wav and one GGD
+   launch per ML bunch, its 40 ``.wts`` deleted after;
+17. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -166,6 +200,8 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
 from __future__ import annotations
 
 import contextlib
+import functools
+import glob
 import io
 import json
 import math
@@ -184,35 +220,44 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
+from tpu_se_torch.bench import dp_epoch  # noqa: E402
 from tpu_se_torch.bench.fixtures import (  # noqa: E402
-    SAMPLE_RATE, SEED, SHIFT, card_line, device_us, pad_batch, stream_hops,
-    time_ms, write_corpus_fixtures, write_fixtures, write_train_fixtures,
+    DEMO_CONDITIONS, SAMPLE_RATE, SEED, SHIFT, card_line, device_us,
+    pad_batch, stream_hops, time_ms, write_corpus_fixtures,
+    write_demo_corpus, write_fixtures, write_train_fixtures,
 )
 from tpu_se_torch.bench.profile_decode import device_profile  # noqa: E402
 from tpu_se_torch.cli.main import main as cli_main  # noqa: E402
 from tpu_se_torch.data import PfilePairDataset, plan_chunks  # noqa: E402
 from tpu_se_torch.dsp import analysis  # noqa: E402
 from tpu_se_torch.dsp.analysis import dft_basis, wav_to_mfcc  # noqa: E402
+from tpu_se_torch.examples import (  # noqa: E402
+    demo_pipeline, serve_streaming,
+)
 from tpu_se_torch.infer import Enhancer, StreamingEnhancer  # noqa: E402
 from tpu_se_torch.infer import streaming  # noqa: E402
 from tpu_se_torch.io import (  # noqa: E402
-    read_norm, read_pfile_meta, read_wav, read_wts,
+    native, read_norm, read_pfile_meta, read_wav, read_wts, write_wav,
 )
 from tpu_se_torch.models import params_from_numpy  # noqa: E402
 from tpu_se_torch.models.ffn import (  # noqa: E402
     reduced_linear, reduced_product,
 )
-from tpu_se_torch.ops import ggd_kernel, lps_kernel  # noqa: E402
+from tpu_se_torch.ops import _build, ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
 from tpu_se_torch.bench.mesh_decode import decode_all  # noqa: E402
 from tpu_se_torch.parallel import MeshConfig, param_shardings  # noqa: E402
 from tpu_se_torch.parallel.mesh import free_port  # noqa: E402
+from tpu_se_torch.parallel.overlap_step import (  # noqa: E402
+    train_chunk_overlap,
+)
 from tpu_se_torch.train import (  # noqa: E402
     CV_BATCH, TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
-    train_chunk, train_one_epoch,
+    run_training, train_chunk, train_one_epoch,
 )
+from tpu_se_torch.train import loop as loop_mod  # noqa: E402
 from tpu_se_torch.utils import profile_trace  # noqa: E402
 
 # Kernel against plain, log domain.  Both sum in float64 and round only
@@ -236,6 +281,11 @@ TP_DATA = (1, 2)
 # The decoder-mesh phase: streams and hops through StreamingEnhancer(mesh=).
 MESH_STREAMS = 8
 MESH_HOPS = 16
+# The host chunk loader phase: reads of the training span per route.
+NATIVE_READS = 5
+# The examples phase: seconds per utterance of the demo corpus stand-in
+# (its TIMIT sentences run 2-4 s).
+DEMO_SECONDS = 3.0
 # The card's published peaks (NVIDIA H100 SXM at 700 W) that the kernels'
 # bounds are stated against: device memory, and fp64 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -694,15 +744,20 @@ def train_phase(dev, root: str) -> dict:
 
 
 def train_rate(dev, tfx: dict, init_wts: str,
-               compute_dtype: str = "float32") -> float:
-    """Informational: training samples/s of epoch 1 on the card (resident
-    frames, no CV), host clock around the epoch ending in a synchronise."""
+               compute_dtype: str = "float32", resident: bool = True,
+               use_native: bool | None = None) -> float:
+    """Informational: training samples/s of epoch 1 on the card (no CV),
+    host clock around the epoch ending in a synchronise.  ``resident``:
+    the span uploaded once beforehand; else every chunk is read (through
+    the host chunk loader, or numpy with ``use_native=False``) and
+    uploaded inside the epoch, as ``device_resident="never"`` trains."""
     cfg = TrainConfig(train_sent_range=tuple(
         int(x) for x in tfx["train_sents"].split("-")),
         traincache=tfx["traincache"], compute_dtype=compute_dtype)
     ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
-                          cfg.train_sent_range, cfg.traincache)
-    frames = load_device_frames(ds, dev)
+                          cfg.train_sent_range, cfg.traincache,
+                          use_native=use_native)
+    frames = load_device_frames(ds, dev) if resident else None
     state = load_checkpoint(init_wts, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -712,8 +767,11 @@ def train_rate(dev, tfx: dict, init_wts: str,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     samples = ml_bunches(tfx) * BUNCH
-    print(f"train   epoch 1 on the card, no CV, {compute_dtype}: {samples} "
-          f"samples in "
+    route = ("resident frames" if resident else
+             "per-chunk reads, " + ("numpy" if use_native is False
+                                    else "host chunk loader"))
+    print(f"train   epoch 1 on the card, no CV, {compute_dtype}, {route}: "
+          f"{samples} samples in "
           f"{dt:.4f} s = {samples / dt:.0f} samples/s "
           f"({samples // BUNCH} bunches, {dt / (samples // BUNCH) * 1e3:.3f} "
           f"ms per bunch)")
@@ -2313,6 +2371,354 @@ def mesh_decode_phase(root: str, fx: dict) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def numpy_reads():
+    """Within the block, the training loop's datasets read with numpy
+    (``use_native=False``), the route the host chunk loader is held to."""
+    saved = loop_mod.PfilePairDataset
+    loop_mod.PfilePairDataset = functools.partial(saved, use_native=False)
+    try:
+        yield
+    finally:
+        loop_mod.PfilePairDataset = saved
+
+
+def native_phase(dev, root: str, train: dict) -> None:
+    """The host chunk loader on the card's host: its build, its rows
+    against numpy's (bitwise), their MB/s, 2 per-chunk epochs through
+    either route (byte-identical ``.wts``), and epoch samples/s."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    cxx = _build.host_compiler()
+    t = time.perf_counter()
+    subprocess.run(_build.host_command(cxx, [_build.HOST_SOURCE],
+                                       os.path.join(root, "host.so")),
+                   check=True, capture_output=True, text=True)
+    compile_s = time.perf_counter() - t
+    t = time.perf_counter()
+    lib_path, _ = _build.build_host_library()
+    native._load()
+    print(f"native  host library: {cxx} {' '.join(_build.HOST_FLAGS)} "
+          f"compiles csrc/chunk_loader.cc in {compile_s:.2f} s; "
+          f"build_host_library + load {time.perf_counter() - t:.2f} s "
+          f"({os.path.basename(lib_path)})")
+
+    lo, hi = (int(x) for x in tfx["train_sents"].split("-"))
+    args = (tfx["noisy"], tfx["clean"], tfx["norm"], (lo, hi),
+            tfx["traincache"])
+    routes = {"host chunk loader": PfilePairDataset(*args),
+              "numpy": PfilePairDataset(*args, use_native=False)}
+    spans, rates = {}, {}
+    for name, ds in routes.items():
+        runs = []
+        for _ in range(NATIVE_READS):
+            t = time.perf_counter()
+            spans[name] = ds.load_span_normalized()
+            runs.append(time.perf_counter() - t)
+        rates[name] = ds.span_bytes() / 1e6 / sorted(runs)[len(runs) // 2]
+    same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+               for a, b in zip(*spans.values()))
+    mb = routes["numpy"].span_bytes() / 1e6
+    print(f"native  read + swap + normalise of the training span (noisy + "
+          f"clean, {mb:.2f} MB of float32 rows, page cache warm), median of "
+          f"{NATIVE_READS}: host chunk loader "
+          f"{rates['host chunk loader']:.1f} MB/s, numpy "
+          f"{rates['numpy']:.1f} MB/s ({rates['host chunk loader'] / rates['numpy']:.2f}x); "
+          f"rows bitwise equal = {same}")
+    if not same:
+        raise SystemExit("the host chunk loader's rows differ from numpy's")
+
+    wts = {}
+    for name, reads in (("native", contextlib.nullcontext()),
+                        ("numpy", numpy_reads())):
+        out = os.path.join(root, f"per_chunk_{name}")
+        t = time.perf_counter()
+        with reads:
+            wts[name] = run_training(TrainConfig(
+                fea_file=tfx["noisy"], targ_file=tfx["clean"],
+                norm_file=tfx["norm"], init_wts_file=init_wts, out_dir=out,
+                train_sent_range=(lo, hi), cv_sent_range=tuple(
+                    int(x) for x in tfx["cv_sents"].split("-")),
+                traincache=tfx["traincache"], epochs=EPOCHS,
+                device_resident="never"), dev, log=lambda s: None)
+        print(f"native  train --epochs {EPOCHS} per chunk "
+              f"(device_resident='never'), rows by {name}: "
+              f"{time.perf_counter() - t:.2f} s")
+    identical = same_bytes(*wts.values())
+    resident = same_bytes(wts["native"],
+                          os.path.join(os.path.dirname(root), "cuda",
+                                       "mlp.2.wts"))
+    print(f"native  per-chunk mlp.2.wts by the host chunk loader and by "
+          f"numpy byte-identical = {identical}; equal to the resident "
+          f"training phase's = {resident}")
+    if not identical:
+        raise SystemExit("per-chunk training differs between the host "
+                         "chunk loader and numpy")
+    for use_native in (None, False):
+        train_rate(dev, tfx, init_wts, resident=False, use_native=use_native)
+    train_rate(dev, tfx, init_wts)
+    print(f"native  host chunk loader phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def overlap_epoch_argv(tfx: dict, init_wts: str, out: str, *extra) -> list:
+    return ["-m", "tpu_se_torch.bench.dp_epoch", "--fea-file", tfx["noisy"],
+            "--targ-file", tfx["clean"], "--norm-file", tfx["norm"],
+            "--init-wts", init_wts, "--train-sents", tfx["train_sents"],
+            "--traincache", str(tfx["traincache"]), "--device", "cuda",
+            "--lrate", AGREE_LRATE, "--out", out, *extra]
+
+
+def overlap_unsharded(dev, tfx: dict, init_wts: str) -> int:
+    """``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
+    card, one epoch each from the same weights.  -> fused GGD launches."""
+    cfg = TrainConfig(train_sent_range=tuple(
+        int(x) for x in tfx["train_sents"].split("-")),
+        traincache=tfx["traincache"])
+    ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
+                          cfg.train_sent_range, cfg.traincache)
+    frames = load_device_frames(ds, dev)
+    states = {}
+    ggd_kernel.launches = 0
+    for name, step in (("overlap", train_chunk_overlap),
+                       ("flat", train_chunk)):
+        states[name] = load_checkpoint(init_wts, dev)
+        train_one_epoch(states[name], ds, cfg.hyper(), cfg.lr_for_epoch(1),
+                        np.random.default_rng(cfg.seed_for_epoch(1)), dev,
+                        device_frames=frames, log=lambda s: None, step=step)
+    torch.cuda.synchronize()
+    launches = ggd_kernel.launches
+    pairs = [(a.detach(), b.detach()) for a, b in zip(
+        states["overlap"].model.parameters(),
+        states["flat"].model.parameters())]
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    bunches = ml_bunches(tfx)
+    print(f"overlap mesh=None on the card, one epoch at lrate "
+          f"{cfg.lrate} from the same weights: train_chunk_overlap against "
+          f"train_chunk, largest weight difference {worst:.3e}, bitwise "
+          f"= {bitwise}; ggd_output_grad (fused) launches {launches} for "
+          f"2 x {bunches} ML bunches")
+    if not bitwise:
+        raise SystemExit(f"mesh=None: train_chunk_overlap differs from "
+                         f"train_chunk by {worst:.3e}")
+    if launches != 2 * bunches:
+        raise SystemExit(f"mesh=None: {launches} fused GGD launches for "
+                         f"2 x {bunches} bunches")
+    return launches
+
+
+def show_profile(name: str, prof: dict, n_layers: int, step: str) -> None:
+    """Print (and check) ``bench/dp_epoch.py --profile``'s trace: the
+    backward products issued while a bunch's gradient all-reduces were in
+    flight (the overlapped step issues two per hidden layer behind its
+    first ring, the flat step none), the device time NCCL kernels share
+    with GEMM kernels, and the host ops of most self time per bunch."""
+    print(f"overlap {name} under torch.profiler, {prof['bunches']} bunches: "
+          f"host op {prof['all_reduce_op']!r} x {prof['all_reduces']}; "
+          f"backward products issued after a bunch's first gradient "
+          f"all-reduce: {sorted(set(prof['products_in_flight']))}; device: "
+          f"{prof['nccl_kernels']} NCCL kernels ({prof['nccl_us']:.1f} us), "
+          f"{prof['gemm_kernels']} GEMM kernels, overlapping for "
+          f"{prof['nccl_gemm_overlap_us']:.1f} us")
+    ops = ", ".join(f"{k} {v:.1f}" for k, v in prof["host_self_us"].items())
+    print(f"overlap {name} per bunch under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device kernels {prof['kernel_us']:.1f}"
+          f" us; host self us: {ops}")
+    want = 2 * (n_layers - 1) if step == "overlap" else 0
+    if set(prof["products_in_flight"]) != {want}:
+        raise SystemExit(f"overlap {name}: {prof['products_in_flight']} "
+                         f"backward products behind the first gradient "
+                         f"all-reduce, wanted {want} per bunch")
+
+
+def overlap_runs(root: str, train: dict) -> dict:
+    """One NCCL rank and two gloo ranks sharing the card, each step, one
+    cluster at a time (timed), then each overlapped form again (together)
+    and the bfloat16 ring at one NCCL rank; held to one process.  -> the
+    split GGD launches of these runs."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    bunches = ml_bunches(tfx)
+    n_layers = len(read_wts(init_wts))
+    launches = {"colsum": 0, "from_sums": 0, "fused": 0}
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        one[dtype] = os.path.join(root, f"one_{dtype}.wts")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            dp_epoch.main(overlap_epoch_argv(tfx, init_wts, one[dtype])[2:]
+                          + ["--compute-dtype", dtype])
+        r = json.loads(text.getvalue().strip().splitlines()[-1])
+        launches["fused"] += r["ggd_launches_both_epochs"][0]
+        print(f"overlap one process, flat step, {dtype}, lrate "
+              f"{AGREE_LRATE}: {r['ms_per_bunch']:.3f} ms per bunch, "
+              f"{r['ggd_launches_both_epochs'][0]} fused GGD launches")
+
+    def cluster(name, n_ranks, gloo, *extra):
+        port = free_port()
+        return [start_rank(overlap_epoch_argv(
+            tfx, init_wts, os.path.join(root, f"{name}.wts"), *extra,
+            *coordinator_flags(port, n_ranks, k, gloo)),
+            os.path.join(root, f"{name}.{k}.log")) for k in range(n_ranks)]
+
+    def finish(name, ranks, dtype="float32"):
+        results = [json.loads(text.strip().splitlines()[-1])
+                   for text in wait_ranks(ranks, f"overlap {name}")]
+        per_layer = 2 if dtype == "bfloat16" else 1
+        for r in results:
+            both = r["ggd_launches_both_epochs"]
+            calls = r["all_reduce_calls"]
+            want = bunches * (per_layer * n_layers + 1
+                              if r["step"] == "overlap" else 2)
+            if not (r["span_equal"] and both == [0, 2 * bunches,
+                                                 2 * bunches]
+                    and calls == want):
+                raise SystemExit(f"overlap {name} rank {r['rank']}: {r}")
+            launches["colsum"] += both[1]
+            launches["from_sums"] += both[2]
+        r = results[0]
+        if "profile" in r:
+            show_profile(name, r["profile"], n_layers, r["step"])
+        worst = dp_epoch.worst_change(
+            read_wts(init_wts), read_wts(one[dtype]),
+            read_wts(os.path.join(root, f"{name}.wts")))
+        print(f"overlap {name}: {r['ms_per_bunch']:.3f} ms per bunch "
+              f"(epoch 2, {r['bunches']} bunches of {r['rows_per_rank']} "
+              f"rows per rank); per bunch and rank {calls / bunches:.0f} "
+              f"all-reduces, {r['all_reduce_bytes'] / bunches:.0f} bytes; "
+              f"split GGD launches {r['ggd_launches_both_epochs'][1]} + "
+              f"{r['ggd_launches_both_epochs'][2]} per rank for 2 x "
+              f"{bunches} bunches; weight changes within {worst:.3e} of one "
+              f"process ({dtype})")
+        bound = TRAIN_DW_RTOL if dtype == "float32" else BF16_TRAIN_DW_RTOL
+        if worst > bound:
+            raise SystemExit(f"overlap {name}: weight changes {worst:.3e} "
+                             f"from one process")
+        return r
+
+    # Timed, one cluster at a time, in turns, each traced after its
+    # epochs (dp_epoch.PROFILE_BUNCHES bunches).
+    for name, n_ranks, gloo, extra in (
+            ("nccl1_flat", 1, False, ("--profile",)),
+            ("nccl1_overlap", 1, False, ("--overlap", "--profile")),
+            ("gloo2_flat", 2, True, ("--profile",)),
+            ("gloo2_overlap", 2, True, ("--overlap", "--profile"))):
+        finish(name, cluster(name, n_ranks, gloo, *extra))
+    # Again, together with the bfloat16 ring on two gloo ranks (gloo sums
+    # bfloat16 on the host); then the bfloat16 ring on one NCCL rank.
+    bf16 = ("--overlap", "--compute-dtype", "bfloat16")
+    again = {name: cluster(name, n, gloo, *extra)
+             for name, n, gloo, extra in (
+                 ("nccl1_overlap_again", 1, False, ("--overlap",)),
+                 ("gloo2_overlap_again", 2, True, ("--overlap",)),
+                 ("gloo2_overlap_bf16", 2, True, bf16))}
+    for name, ranks in again.items():
+        if name.endswith("_bf16"):
+            finish(name, ranks, "bfloat16")
+            continue
+        finish(name, ranks)
+        first = name[:-len("_again")]
+        same = same_bytes(os.path.join(root, f"{first}.wts"),
+                          os.path.join(root, f"{name}.wts"))
+        print(f"overlap {first} rerun byte-identical = {same}")
+        if not same:
+            raise SystemExit(f"overlap {first}: rerun differs")
+    finish("nccl1_overlap_bf16", cluster("nccl1_overlap_bf16", 1, False,
+                                         *bf16), "bfloat16")
+    return launches
+
+
+def overlap_phase(dev, root: str, train: dict) -> dict:
+    """-> the GGD kernels' launches on the overlapped paths."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    fused = overlap_unsharded(dev, train["tfx"], train["init_wts"])
+    launches = overlap_runs(root, train)
+    launches["fused"] += fused
+    print(f"overlap overlapped-step phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def examples_phase(root: str, fx: dict) -> dict:
+    """Both example scripts on the card: ``serve_streaming`` on the slice
+    phase's longest utterance with its model (LPS launches counted), and
+    ``demo_pipeline`` at full width on a synthetic 14-condition stand-in
+    of the demo corpus.  -> LPS and GGD launches."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    wav = os.path.join(root, "noisy.wav")
+    noisy = fx["waves"][-1]
+    write_wav(wav, noisy, SAMPLE_RATE)
+    lps_kernel.launches = 0
+    streaming.hops_replayed = 0
+    t = time.perf_counter()
+    got = serve_streaming.serve(wav, fx["wts"], fx["norm"],
+                                os.path.join(root, "enhanced_stream.wav"),
+                                "cuda", log=lambda s: print(f"example {s}"))
+    torch.cuda.synchronize()
+    replays, eager = streaming.hops_replayed, lps_kernel.launches
+    hops = len(noisy) // SHIFT + got["hops"]
+    print(f"example serve_streaming on the card: {time.perf_counter() - t:.2f}"
+          f" s; {replays} graph replays (one LPS kernel each) for {hops} "
+          f"hops, {eager} lps_cuda calls besides (a warm-up and a capture "
+          f"per enhancer)")
+    # The batch decode's length: whole hops (T + 1 frames of shift).
+    if not (replays == hops and eager == 4
+            and len(got["enhanced"]) == len(noisy) // SHIFT * SHIFT):
+        raise SystemExit(f"serve_streaming: {replays} replays, {eager} "
+                         f"eager LPS calls, {len(got['enhanced'])} samples")
+    lps = replays + eager
+
+    reference = write_demo_corpus(os.path.join(root, "demo_ref"),
+                                  seconds=DEMO_SECONDS)
+    n_train = len(DEMO_CONDITIONS) - 1
+    work = os.path.join(root, "demo")
+    lps_kernel.launches = 0
+    ggd_kernel.launches = 0
+    t = time.perf_counter()
+    results = demo_pipeline.run(work, reference, "cuda",
+                                log=lambda s: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    lps += lps_kernel.launches
+    for r in results:
+        print(f"example demo_pipeline {os.path.basename(r['wav'])}: segsnr "
+              f"{r['segsnr_noisy']:.2f} -> {r['segsnr']:.2f} dB, lsd "
+              f"{r['lsd_noisy']:.2f} -> {r['lsd']:.2f} dB, stoi "
+              f"{r['stoi_noisy']:.3f} -> {r['stoi']:.3f}")
+        enhanced, _ = read_wav(r["out"])
+        values = [r[k] for k in ("segsnr", "segsnr_noisy", "lsd",
+                                 "lsd_noisy", "stoi", "stoi_noisy")]
+        if not (np.isfinite(values).all() and len(enhanced)):
+            raise SystemExit(f"demo_pipeline: {r}")
+    trained = glob.glob(os.path.join(work, "MLGGD1", "mlp.*.wts"))
+    # One LPS launch per training wav (noisy and clean) and per decoded
+    # utterance; one GGD launch per ML bunch of each epoch.
+    bunches = ml_bunches({"noisy": os.path.join(work, "train_noisy.pfile"),
+                          "train_sents": f"0-{n_train - 3}",
+                          "traincache": TrainConfig.traincache})
+    want = (2 * n_train + len(results), 40 * bunches)
+    print(f"example demo_pipeline at full width, 40 epochs, "
+          f"{len(DEMO_CONDITIONS)} conditions of {DEMO_SECONDS} s: "
+          f"{seconds:.2f} s; {len(results)} held out; LPS launches "
+          f"{lps_kernel.launches}, ggd_output_grad launches "
+          f"{ggd_kernel.launches} ({bunches} ML bunches per epoch); "
+          f"deleting its {len(trained)} .wts")
+    if (len(results) != 1 or len(trained) != 40
+            or (lps_kernel.launches, ggd_kernel.launches) != want):
+        raise SystemExit(f"demo_pipeline: {len(results)} held out, "
+                         f"{len(trained)} .wts, launches (LPS, GGD) "
+                         f"{(lps_kernel.launches, ggd_kernel.launches)}, "
+                         f"wanted {want}")
+    for path in trained:
+        os.remove(path)
+    print(f"example examples phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return {"lps": lps, "ggd": ggd_kernel.launches}
+
+
 def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2341,18 +2747,24 @@ def main() -> int:
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
         train = train_phase(dev, root)
+        native_phase(dev, os.path.join(root, "native"), train)
         pipe = pipeline_phase(os.path.join(root, "pipeline"),
                               train["quiet"])
         stream_launches, fp32_hops = stream_phase(root, fx)
         bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
                           fp32_hops)
         dp = dp_phase(dev, os.path.join(root, "dp"), train)
+        over = overlap_phase(dev, os.path.join(root, "overlap"), train)
         tp = tp_phase(os.path.join(root, "tp"), train)
         mesh_lps = mesh_decode_phase(os.path.join(root, "mesh"), fx)
+        examples = examples_phase(os.path.join(root, "examples"), fx)
 
     # Launches: over the decode, streaming (graph replays included),
-    # pipeline and bfloat16 paths; over the training, pipeline and bfloat16
-    # paths.  Device time
+    # pipeline, bfloat16, decoder-mesh and example paths; over the
+    # training, pipeline, bfloat16, overlapped-step (at mesh=None and the
+    # one-process references) and example paths; the split kernels' over
+    # the data-parallel, overlapped-step and tensor-parallel paths.  Device
+    # time
     # (CUDA-graph replay) at the main path's shapes: the batched decode's
     # rows, the parity bunch.  The split entry points' launches are the
     # child ranks' own counts (one rank over NCCL, two ranks over gloo
@@ -2363,26 +2775,29 @@ def main() -> int:
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": (launches + stream_launches + pipe["lps_launches"]
-                     + bf16["lps_launches"] + mesh_lps),
+                     + bf16["lps_launches"] + mesh_lps + examples["lps"]),
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
         "launches": (train["launches"] + pipe["ggd_launches"]
-                     + bf16["ggd_launches"]),
+                     + bf16["ggd_launches"] + over["fused"]
+                     + examples["ggd"]),
         "max_abs_err": ggd["max_abs_err"],
         **ggd["times"][BUNCH], "library_ms": None}, {
         "name": "ggd_colsum", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": dp["launches"]["colsum"] + tp["colsum"],
+        "launches": (dp["launches"]["colsum"] + over["colsum"]
+                     + tp["colsum"]),
         "max_abs_err": dp["max_abs_err"]["colsum"],
         **dp["times"][BUNCH]["colsum"], "library_ms": None}, {
         "name": "ggd_grad_from_sums", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": dp["launches"]["from_sums"] + tp["from_sums"],
+        "launches": (dp["launches"]["from_sums"] + over["from_sums"]
+                     + tp["from_sums"]),
         "max_abs_err": dp["max_abs_err"]["from_sums"],
         **dp["times"][BUNCH]["from_sums"], "library_ms": None}]}))
     print(f"card    {card}")

@@ -34,7 +34,11 @@ def test_port_imports_no_jax():
             "import tpu_se_torch.parallel.distributed, tpu_se_torch.__main__\n"
             "import tpu_se_torch.parallel.tensor\n"
             "import tpu_se_torch.bench.dp_epoch, tpu_se_torch.bench.mesh_decode\n"
-            "import tpu_se_torch.data.pipeline\n"
+            "import tpu_se_torch.data.pipeline, tpu_se_torch.io.native\n"
+            "import tpu_se_torch.parallel.overlap_step\n"
+            "import tpu_se_torch.examples\n"
+            "import tpu_se_torch.examples.serve_streaming\n"
+            "import tpu_se_torch.examples.demo_pipeline\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'tpu_se'))\n"

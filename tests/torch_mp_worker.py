@@ -33,6 +33,13 @@ Modes:
   bfloat16 when the problem asks), from ``shard_params`` of its layers;
   rank 0 saves the gathered outputs, weights, velocity, alpha and the
   collectives' traffic (``tp_<name>.out.npz``).
+- ``overlap``: the overlapped step ``train_chunk_overlap(mesh=)`` and the
+  flat ``train_chunk(mesh=)``, in float32 for ``ml`` in {1, 0} on
+  ``<dir>/problem.npz`` (as ``chunk``) and in bfloat16 (``ml`` 1,
+  ``grad_scale`` natural) on ``<dir>/problem_bf16.npz``; and
+  ``Mesh.all_reduce_sum_async`` of a bfloat16 and a float32 tensor at
+  once; rank 0 saves weights, alpha and each run's collectives
+  (``overlap.npz``).
 - ``decode``: ``tpu_se_torch.bench.mesh_decode.decode_all`` on
   ``<dir>/decode.npz`` (written by the test) with a data mesh over the
   ranks; every rank saves what it returned (``decode.<rank>.npz``).
@@ -202,6 +209,55 @@ def run_chunk(rank, n_ranks, out_dir, ml, beta):
         np.savez(os.path.join(out_dir, "chunk.npz"), **out)
 
 
+def run_overlap(rank, n_ranks, out_dir):
+    from tpu_se_torch.parallel.overlap_step import (
+        shard_overlap_args, train_chunk_overlap,
+    )
+
+    mesh = make_mesh(device="cpu")
+    assert (mesh.rank, mesh.size) == (rank, n_ranks)
+    out = {}
+    for case, ml, dtype, scale, name in (
+            ("ml1", True, "float32", "parity", "problem"),
+            ("ml0", False, "float32", "parity", "problem"),
+            ("bf16", True, "bfloat16", "natural", "problem_bf16")):
+        problem, layers = _load(os.path.join(out_dir, f"{name}.npz"))
+        hyper = TrainHyper(beta=1.0, ml=ml,
+                           bunchsize=int(problem["starts"].shape[1]),
+                           context=int(problem["context"]),
+                           targ_offset=int(problem["targ_offset"]),
+                           compute_dtype=dtype, grad_scale=scale)
+        for step, fn in (("overlap", train_chunk_overlap),
+                         ("flat", train_chunk)):
+            state = make_train_state(params_from_numpy(layers, "cpu"))
+            noisy, clean, starts = shard_overlap_args(
+                mesh, torch.from_numpy(problem["noisy"]),
+                torch.from_numpy(problem["clean"]),
+                torch.from_numpy(problem["starts"].astype(np.int64)))
+            calls, sent = mesh.traffic["data"]["all_reduce"]
+            fn(state, noisy, clean, starts, float(problem["lr"]), hyper,
+               mesh=mesh)
+            mesh.check_replicas(list(state.model.parameters()),
+                                "after the chunk")
+            after = mesh.traffic["data"]["all_reduce"]
+            out[f"{case}_{step}_traffic"] = np.array(
+                [after[0] - calls, after[1] - sent])
+            out[f"{case}_{step}_alpha"] = state.alpha.numpy()
+            for i, p in enumerate(param_layers(state.model)):
+                for k in ("w", "b"):
+                    out[f"{case}_{step}_{k}{i}"] = p[k].detach().numpy()
+    # Two sums in flight at once, one of them in bfloat16.
+    half = torch.tensor([1.0, 2.0 ** -8, 3.0, -0.5],
+                        dtype=torch.bfloat16) * (rank + 1)
+    full = torch.arange(5, dtype=torch.float32) * (rank + 1)
+    pending = [mesh.all_reduce_sum_async(half.clone(), slot="half"),
+               mesh.all_reduce_sum_async(full.clone(), slot="full")]
+    out["bf16_sum"], out["f32_sum"] = (
+        p.wait().float().numpy() for p in pending)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "overlap.npz"), **out)
+
+
 def _load(path):
     with np.load(path) as z:
         problem = dict(z)
@@ -367,6 +423,8 @@ def main() -> int:
             run_tp(rank, n_ranks, out_dir, *rest)
         elif mode == "decode":
             run_decode(rank, out_dir)
+        elif mode == "overlap":
+            run_overlap(rank, n_ranks, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:

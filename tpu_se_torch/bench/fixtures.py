@@ -9,7 +9,9 @@ set the same way: a noisy/clean LPS pfile pair of 24 sentences and the
 noisy ``.norm``; ``write_corpus_fixtures`` writes those 24 sentences as
 noisy/clean wavs instead, the input of the feature-preparation CLI.
 ``stream_hops`` cuts ``write_fixtures``' waves into the aligned hops a
-multi-stream ``StreamingEnhancer`` takes.
+multi-stream ``StreamingEnhancer`` takes.  ``write_demo_corpus`` writes a
+stand-in for the reference's demo corpus (``Enh_demos``), named as its
+files are, for ``tpu_se_torch.examples.demo_pipeline``.
 """
 
 from __future__ import annotations
@@ -166,6 +168,36 @@ def write_corpus_fixtures(root: str, seed: int = SEED) -> dict:
             f.write("\n".join(paths) + "\n")
     return {**out, "train_sents": TRAIN_SENTS, "cv_sents": CV_SENTS,
             "traincache": TRAINCACHE}
+
+
+# One synthetic utterance per condition, named as the demo corpus names
+# its NOISEX conditions; the pipeline example holds F-16Cockpit_SNR10 out.
+DEMO_CONDITIONS = (
+    "Babble_SNR0", "Buccaneer1_SNR5", "DestroyerEngine_SNR0",
+    "DestroyerOps_SNR5", "F-16Cockpit_SNR10", "Factory1_SNR0",
+    "Factory2_SNR5", "HFchannel_SNR10", "Leopard_SNR5", "M109_SNR0",
+    "MachineGun_SNR5", "Pink_SNR-5", "Volvo_SNR10", "White_SNR0")
+DEMO_UTTERANCE = "TEST_DR3_FPKT0_SI1538"
+
+
+def write_demo_corpus(root: str, conditions=DEMO_CONDITIONS,
+                      seconds: float = 2.0, seed: int = SEED) -> str:
+    """Write ``root/Enh_demos/<condition>_NOISY_<utt>.wav`` and its clean
+    twin ``<condition>_CLEAN_<utt>.WAV`` for each condition: seeded tones
+    under an envelope plus noise (``_voiced``), ``seconds`` long, a pitch
+    per condition.  -> ``root``, the corpus root the pipeline example
+    takes."""
+    rng = np.random.default_rng(seed)
+    demo = os.path.join(root, "Enh_demos")
+    os.makedirs(demo, exist_ok=True)
+    n = int(seconds * SAMPLE_RATE)
+    for i, cond in enumerate(conditions):
+        clean, noisy = _voiced(n, 100.0 + 9.0 * i, rng)
+        write_wav(os.path.join(demo, f"{cond}_NOISY_{DEMO_UTTERANCE}.wav"),
+                  _int16(noisy), SAMPLE_RATE)
+        write_wav(os.path.join(demo, f"{cond}_CLEAN_{DEMO_UTTERANCE}.WAV"),
+                  _int16(clean), SAMPLE_RATE)
+    return root
 
 
 def write_fixtures(root: str, layersizes=DEFAULT_LAYERSIZES,

@@ -1,10 +1,15 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``.
 
 Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers),
-so ``nvcc`` compiles the whole set in seconds.  The shared library lands in
-``build/tpu_se_torch/`` beside the package, named by a hash of the sources
-and the command, and is built at most once per content: a changed source
-gets a new file, an unchanged one is reused.  Nothing here runs at import.
+so ``nvcc`` compiles the whole set in seconds.  ``csrc/chunk_loader.cc`` is
+host code (the pfile reader of ``tpu_se_torch/io/native.py``), built by the
+host compiler into a library of its own (``build_host_library``).  Each
+shared library lands in ``build/tpu_se_torch/`` beside the package, named
+by a hash of its sources and its command, and is built at most once per
+content: a changed source gets a new file, an unchanged one is reused.  A
+build writes a temporary file and renames it into place, so processes that
+build the same library at once (test workers, the ranks of a mesh) all end
+with one whole file.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -28,6 +33,13 @@ BUILD_DIR = PKG_DIR.parent / "build" / "tpu_se_torch"
 # gradient the IEEE powf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The host library's flags.  No -ffast-math, and no -march=native: the
+# swap-and-normalise computes (x - mean) * inv_std, which holds no
+# multiply-add to contract, so the instruction set changes no bit, and a
+# library keyed by its sources and flags alone must run on any x86-64 host
+# that a checkout's build directory travels to.
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+HOST_SOURCE = SRC_DIR / "chunk_loader.cc"
 
 
 def find_nvcc() -> str:
@@ -89,13 +101,42 @@ def nvcc_command(nvcc: str, sources, output, defines=()) -> list[str]:
             *(str(s) for s in sources)]
 
 
-def library_path(sources, defines=()) -> pathlib.Path:
-    """Where the library for these sources lives: keyed by content + flags."""
-    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+def library_path(sources, defines=(), flags=NVCC_FLAGS,
+                 stem: str = "libtpu_se_torch") -> pathlib.Path:
+    """Where the library for these sources lives: keyed by content + flags
+    (for the host library the compiler's name is among its flags)."""
+    h = hashlib.sha256(" ".join((*flags, *defines)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libtpu_se_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(lib_path: pathlib.Path, command, what: str) -> str:
+    """Run ``command(output)`` into a temporary file beside ``lib_path`` and
+    rename it into place, unless ``lib_path`` exists -> the compiler's
+    output ("" when an existing build was reused).  Raises with that output
+    when the compiler fails or cannot be started."""
+    if lib_path.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        argv = command(tmp)
+        try:
+            proc = subprocess.run(argv, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{what}: cannot run {argv[0]!r} ({e})") from e
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
+                               f"{' '.join(argv)}\n{log}")
+        os.replace(tmp, lib_path)    # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return log
 
 
 def build_library(sources, defines=()) -> tuple[pathlib.Path, str]:
@@ -106,23 +147,31 @@ def build_library(sources, defines=()) -> tuple[pathlib.Path, str]:
     a failed compile, with nvcc's output in the message.
     """
     lib_path = library_path(sources, defines)
-    log = ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                nvcc_command(find_nvcc(), sources, tmp, defines),
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, lib_path)    # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return lib_path, log
+    return lib_path, _compile(
+        lib_path, lambda out: nvcc_command(find_nvcc(), sources, out, defines),
+        "nvcc")
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++``."""
+    return os.environ.get("CXX") or "c++"
+
+
+def host_command(cxx: str, sources, output) -> list[str]:
+    """The full host-compiler command that builds ``sources`` into the
+    shared library ``output``."""
+    return [cxx, *HOST_FLAGS, "-o", str(output), *(str(s) for s in sources)]
+
+
+def build_host_library(sources=(HOST_SOURCE,)) -> tuple[pathlib.Path, str]:
+    """Build the host library (``csrc/chunk_loader.cc``) with
+    ``host_compiler()`` if not built yet -> (library path, compiler log).
+    Raises with the compiler's output when the build fails."""
+    cxx = host_compiler()
+    lib_path = library_path(sources, flags=(cxx, *HOST_FLAGS),
+                            stem="libtpu_se_torch_host")
+    return lib_path, _compile(
+        lib_path, lambda out: host_command(cxx, sources, out), cxx)
 
 
 def bind_ggd(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -18,7 +18,10 @@ process group out the same way, rank = d * model + m, one rank per device:
 Where GSPMD inserts collectives, the port writes them out over one axis
 at a time (``Mesh.all_reduce_sum``, ``all_gather``): the GGD column sums
 and the flattened gradients over ``data``, the activations of the
-tensor-parallel layers over ``model``.  Every rank makes one
+tensor-parallel layers over ``model``.  ``Mesh.all_reduce_sum_async``
+starts a sum and returns at once, so that the overlapped step
+(``parallel/overlap_step.py``) can reduce one layer's gradients while the
+card computes the earlier layers' backward products.  Every rank makes one
 ``torch.distributed`` subgroup per axis (``make_mesh``).
 
 Where the reference is one process over N local devices, or one process
@@ -99,7 +102,7 @@ class Mesh:
         self.traffic = {axis: {op: [0, 0] for op in COLLECTIVES}
                         for axis in AXES}
         self._groups: dict = {}
-        self._staging: torch.Tensor | None = None
+        self._staging: dict = {}
         self._flat: torch.Tensor | None = None
 
     @property
@@ -150,13 +153,16 @@ class Mesh:
         entry[0] += 1
         entry[1] += t.numel() * t.element_size()
 
-    def _host_staging(self, t: torch.Tensor) -> torch.Tensor:
-        """A pinned float32 host buffer of at least ``t``'s size, allocated
-        once and grown only when a larger tensor comes."""
-        if self._staging is None or self._staging.numel() < t.numel():
-            self._staging = torch.empty(t.numel(), dtype=torch.float32,
-                                        pin_memory=True)
-        return self._staging[: t.numel()].view(t.shape)
+    def _host_staging(self, t: torch.Tensor, slot=None) -> torch.Tensor:
+        """A pinned host buffer of ``t``'s type and at least its size, one
+        per ``slot`` (reductions in flight at once need one each),
+        allocated once and grown only when a larger tensor comes."""
+        key = (slot, t.dtype)
+        buf = self._staging.get(key)
+        if buf is None or buf.numel() < t.numel():
+            buf = self._staging[key] = torch.empty(
+                t.numel(), dtype=t.dtype, pin_memory=True)
+        return buf[: t.numel()].view(t.shape)
 
     def all_reduce_sum(self, t: torch.Tensor, axis: str = "data"
                        ) -> torch.Tensor:
@@ -165,22 +171,65 @@ class Mesh:
 
         NCCL reduces on the card.  gloo reduces on the host: a CUDA tensor
         goes through a pinned host buffer and back.  That is the gloo path
-        for every CUDA tensor, chosen by the backend's name.
+        for every CUDA tensor, chosen by the backend's name.  A trace shows
+        the call as ``Mesh.all_reduce_sum``; its self time is the wait for
+        the ring.
         """
         if t.dtype != torch.float32:
             raise ValueError(f"all_reduce_sum takes float32, got {t.dtype}")
         if self._idle(axis):
             return t
         group = self._groups.get(axis)
-        if self.backend == "gloo" and t.device.type == "cuda":
-            host = self._host_staging(t)
-            host.copy_(t)                 # synchronises with the stream
-            dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-            t.copy_(host, non_blocking=True)
-        else:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        with torch.profiler.record_function("Mesh.all_reduce_sum"):
+            if self.backend == "gloo" and t.device.type == "cuda":
+                host = self._host_staging(t)
+                host.copy_(t)             # synchronises with the stream
+                dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+                t.copy_(host, non_blocking=True)
+            else:
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         self._count(axis, "all_reduce", t)
         return t
+
+    def all_reduce_sum_async(self, t: torch.Tensor, axis: str = "data",
+                             slot=0) -> "PendingSum":
+        """Start summing ``t`` (float32 or bfloat16, contiguous) over the
+        ranks of this rank's ``axis``, in place, and return at once; the
+        handle's ``wait()`` returns ``t`` holding the sum.  ``t`` must not
+        be read or written before then.
+
+        NCCL: ``torch.distributed.all_reduce(async_op=True)``; ``wait()``
+        makes the current stream wait for NCCL's, without blocking the
+        host, so work issued in between runs meanwhile.  bfloat16 is
+        summed as bfloat16.  gloo with a CUDA tensor: ``t`` is copied to a
+        pinned host buffer of its own (``slot`` names it: one per sum in
+        flight), gloo sums it on the host in its own thread, and ``wait()``
+        copies the sum back without blocking the host.  The copy to the
+        host waits for the card: one host synchronisation per layer (four
+        per bunch in float32, eight in bfloat16, against the flat step's
+        one), so the card's queue runs dry at every layer and the host
+        issues the layer below's products only once this layer's gradient
+        exists; the ring then runs on gloo's thread beside them.  gloo sums bfloat16 as bfloat16 too (this torch's gloo
+        takes it: ``tests/test_torch_overlap.py``, and ``chip_smoke.py``'s
+        two gloo ranks on the card).  Counted at the start, like
+        ``all_reduce_sum``."""
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"all_reduce_sum_async takes float32 or "
+                             f"bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("all_reduce_sum_async takes a contiguous tensor")
+        if self._idle(axis):
+            return PendingSum(t)
+        group = self._groups.get(axis)
+        self._count(axis, "all_reduce", t)
+        if self.backend == "gloo" and t.device.type == "cuda":
+            host = self._host_staging(t, slot)
+            host.copy_(t)                 # synchronises with the stream
+            return PendingSum(t, dist.all_reduce(
+                host, op=dist.ReduceOp.SUM, group=group, async_op=True),
+                host)
+        return PendingSum(t, dist.all_reduce(
+            t, op=dist.ReduceOp.SUM, group=group, async_op=True))
 
     def all_reduce_sum_flat(self, tensors, axis: str = "data"
                             ) -> list[torch.Tensor]:
@@ -249,6 +298,28 @@ class Mesh:
                     f"replicas differ {where}: rank {rank}'s tensors "
                     f"{differ} (of {len(tensors)}) are not rank {ranks[0]}'s "
                     f"bit for bit (seen on rank {self.rank} of {self.size})")
+
+
+class PendingSum:
+    """An all-reduce in flight (``Mesh.all_reduce_sum_async``)."""
+
+    def __init__(self, t: torch.Tensor, work=None,
+                 host: torch.Tensor | None = None):
+        self.tensor = t
+        self._work = work
+        self._host = host
+
+    def wait(self) -> torch.Tensor:
+        """-> the summed tensor, once the sum has landed in it (on the
+        card: in stream order).  A trace shows the wait as
+        ``PendingSum.wait``."""
+        if self._work is not None:
+            with torch.profiler.record_function("PendingSum.wait"):
+                self._work.wait()
+            self._work = None
+            if self._host is not None:
+                self.tensor.copy_(self._host, non_blocking=True)
+        return self.tensor
 
 
 def make_mesh(data: int | None = None, model: int = 1,

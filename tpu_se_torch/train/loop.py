@@ -199,7 +199,8 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
                     hyper: TrainHyper, lr: float, rng: np.random.Generator,
                     device, device_frames=None, log=print,
                     start_chunk: int = 0, ckpt_every: int = 0,
-                    ckpt_cb=None, mesh: Mesh | None = None) -> TrainState:
+                    ckpt_cb=None, mesh: Mesh | None = None,
+                    step=None) -> TrainState:
     """One epoch over the dataset's chunks on ``device``.
 
     With ``device_frames`` (from ``load_device_frames``) the frames stay on
@@ -209,6 +210,9 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
     trained).  With ``ckpt_every`` > 0, ``ckpt_cb(state, chunks_done)``
     fires after every N trained chunks.  With ``mesh`` every rank walks the
     same chunks and shuffles and trains its columns of each bunch.
+    ``step`` trains one chunk, with ``train_chunk``'s arguments; None is
+    ``train_chunk`` (``bench/dp_epoch.py --overlap`` passes the overlapped
+    step).
     """
     device = torch.device(device)
     n_chunks = dataset.n_chunks
@@ -228,9 +232,9 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
         if mesh is not None:
             noisy, clean, starts = shard_train_args(mesh, noisy, clean,
                                                     starts)
-        train_chunk(state, noisy, clean,
-                    to_device(starts.astype(np.int64), device), lr, hyper,
-                    generator=gen, mesh=mesh)
+        (train_chunk if step is None else step)(
+            state, noisy, clean, to_device(starts.astype(np.int64), device),
+            lr, hyper, generator=gen, mesh=mesh)
         log(f"  chunk {i+1}/{n_chunks}: {n_bunches} bunches{tag}")
         if ckpt_every and ckpt_cb is not None and (i + 1) % ckpt_every == 0:
             ckpt_cb(state, i + 1)
