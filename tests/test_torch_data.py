@@ -111,6 +111,17 @@ def test_plan_chunks_and_windows_match_reference(name, traincache):
             assert got.n_samples[c] > 0
 
 
+@pytest.mark.parametrize("t,dim,context", [(1, 257, 7), (2, 3, 7),
+                                            (50, 257, 7), (9, 5, 3)])
+def test_splice_replicated_matches_reference(t, dim, context):
+    frames = np.random.default_rng(t).standard_normal((t, dim)
+                                                      ).astype(np.float32)
+    got = data.splice.splice_replicated(frames, context)
+    want = ref_data.splice.splice_replicated(frames, context)
+    assert got.shape == (t, context * dim) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 def test_zero_sample_trailing_chunk_is_dropped():
     plan = data.plan_chunks(ENDS_CASES["exact-multiple"], (0, 2), 13)
     np.testing.assert_array_equal(plan.n_samples, [13, 13, 13])

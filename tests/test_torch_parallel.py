@@ -409,3 +409,18 @@ def test_mesh_data_on_cuda_without_a_card_raises(tmp_path):
                   "--norm-file", "c", "--out-dir", str(tmp_path / "out"),
                   "--mesh-data", "2"])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("ephemeral,want", [
+    ("16000\t65535\n", range(3232, 16000)),
+    ("32768\t60999\n", range(20000, 32768)),
+    ("1024\t65535\n", range(20000, 32768)),
+    (None, range(20000, 32768))], ids=["16000", "linux", "all", "unread"])
+def test_free_port_draws_below_the_ephemeral_range(ephemeral, want, tmp_path,
+                                                   monkeypatch):
+    path = tmp_path / "ip_local_port_range"
+    if ephemeral is not None:
+        path.write_text(ephemeral)
+    monkeypatch.setattr(mesh_mod, "_EPHEMERAL_RANGE", str(path))
+    assert mesh_mod.port_pool() == want
+    assert free_port() in want

@@ -9,8 +9,16 @@ the containers are decoded natively, with no external tool.
 from __future__ import annotations
 
 import struct
+from dataclasses import dataclass
 
 import numpy as np
+
+
+@dataclass
+class WavInfo:
+    sample_rate: int
+    num_channels: int
+    bits_per_sample: int
 
 
 def read_wav(path) -> tuple[np.ndarray, int]:

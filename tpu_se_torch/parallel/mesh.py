@@ -387,19 +387,37 @@ def shard_train_args(mesh: Mesh, noisy, clean, starts):
                                 (mesh.data_rank + 1) * per]
 
 
-# Ports that ``free_port`` draws from: below Linux's default ephemeral
-# range (32768-60999), so that no socket the OS numbers itself -- a gloo
-# connection of another group on this host, say -- takes the port between
-# the draw and the coordinator's bind.
-_PORTS = range(20000, 32768)
+# Where this host's ephemeral ports start (``ip_local_port_range``), and
+# Linux's default where that cannot be read.
+_EPHEMERAL_RANGE = "/proc/sys/net/ipv4/ip_local_port_range"
+_EPHEMERAL_START = 32768
+
+
+def port_pool() -> range:
+    """The ports ``free_port`` draws from: up to 12,768 ports just below
+    this host's ephemeral range, so that no socket the OS numbers itself
+    takes the port between the draw and the coordinator's bind -- a gloo
+    connection of another group, say, or a rank's connection to a
+    coordinator that is not listening yet, which Linux can connect to
+    itself on that very port (seen on a host whose range starts at
+    16000).  A range that leaves no room below it gives 20000-32767."""
+    try:
+        with open(_EPHEMERAL_RANGE) as f:
+            start = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        start = _EPHEMERAL_START
+    if start < 2048:
+        return range(20000, 32768)
+    return range(max(1024, start - 12768), start)
 
 
 def free_port() -> int:
     """A TCP port that is free on this host now (for a local mesh's
-    coordinator), drawn at random from ``_PORTS``."""
+    coordinator), drawn at random from ``port_pool()``."""
     draw = random.SystemRandom()
+    pool = port_pool()
     while True:
-        port = draw.choice(_PORTS)
+        port = draw.choice(pool)
         with socket.socket() as s:
             try:
                 s.bind(("127.0.0.1", port))
