@@ -47,10 +47,24 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    runs the same command at ``--lrate 0.001`` on the card and on
    ``--device cpu`` and holds their weight changes to each other (per
    layer, relative difference <= 1e-3) and their CV metrics to rtol 1e-4;
-   times one epoch's training.  (At the default lrate the full-width
+   times one epoch's training; every one-device training run on the card
+   here and below replays a captured bunch: its replays must be its
+   bunches less one eager warm-up bunch per capture.  (At the default
+   lrate the full-width
    training is chaotic: any float32 rounding difference grows ~30x every 4
    bunches, and two CPU implementations differ by 5-9 % after one epoch, so
-   only a smaller step can hold two devices to each other.);
+   only a smaller step can hold two devices to each other.)  Then the
+   train-graph phase: ``train_chunk`` with its captured bunch replayed
+   (``graph=True``) and eager (``graph=False``) from the same full-width
+   state over one chunk of seeded resident frames, M = 128 float32 (400
+   bunches) and M = 4096 bfloat16 (50 bunches), at lrate 0.1: weights,
+   velocity and alpha bitwise equal, one GGD launch per bunch, replays =
+   bunches - 1; ms per bunch of both (host clock, then in turns), device
+   busy us and launches per bunch (``torch.profiler``), the first call's
+   ms (a warm-up bunch and the capture) and a call's with new frames (a
+   capture again; the memory this adds) against an eager bunch's, beside
+   the card's name and power limit (in a child process, so that its
+   traces of training bunches stay out of this one);
 8. pipeline phase: the paper's whole pipeline through the CLI, in-process,
    at full width, from a 24-sentence 16 kHz noisy/clean wav corpus:
    ``lps-extract --device cuda --jobs 4`` over the 48 wavs (one LPS kernel
@@ -248,9 +262,9 @@ from tpu_se_torch.infer import streaming  # noqa: E402
 from tpu_se_torch.io import (  # noqa: E402
     native, read_norm, read_pfile_meta, read_wav, read_wts, write_wav,
 )
-from tpu_se_torch.models import params_from_numpy  # noqa: E402
+from tpu_se_torch.models import init_params, params_from_numpy  # noqa: E402
 from tpu_se_torch.models.ffn import (  # noqa: E402
-    reduced_linear, reduced_product,
+    DEFAULT_LAYERSIZES, reduced_linear, reduced_product,
 )
 from tpu_se_torch.ops import _build, ggd_kernel, lps_kernel  # noqa: E402
 from tpu_se_torch.ops._build import (  # noqa: E402
@@ -264,9 +278,11 @@ from tpu_se_torch.parallel.overlap_step import (  # noqa: E402
 )
 from tpu_se_torch.train import (  # noqa: E402
     CV_BATCH, TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
-    run_training, train_chunk, train_one_epoch,
+    make_train_state, param_layers, run_training, train_chunk,
+    train_one_epoch,
 )
 from tpu_se_torch.train import loop as loop_mod  # noqa: E402
+from tpu_se_torch.train import step as step_mod  # noqa: E402
 from tpu_se_torch.utils import profile_trace  # noqa: E402
 
 # Kernel against plain, log domain.  Both sum in float64 and round only
@@ -341,6 +357,14 @@ MFCC_ATOL = 1e-3          # the CPU tests' bound against JAX; here ~1e-5
 BF16_ROWS = (1, 8, 128, 992, 4096)
 BIG_BUNCH = 4096
 BUNCH = 128
+# The train-graph phase: (M, products' dtype, bunches in its chunk), on
+# GRAPH_FRAMES resident seeded frames at lrate GRAPH_LRATE (the recipe's);
+# GRAPH_PROFILED bunches under torch.profiler per step form.
+GRAPH_CHUNKS = ((BUNCH, "float32", 400), (BIG_BUNCH, "bfloat16", 50))
+GRAPH_FRAMES = 32768
+GRAPH_LRATE = 0.1
+GRAPH_PROFILED = 8
+GRAPH_RECAPTURES = 5
 TRACE_WINDOWS = 3         # traces of one bunch before a lost record fails
 EPOCHS = 2
 # name -> (with --clean-scp, extra decode flags)
@@ -681,6 +705,23 @@ def ml_bunches(tfx: dict) -> int:
     return int(sum(int(n) // BUNCH for n in plan.n_samples))
 
 
+def zero_train_counts() -> None:
+    """GGD kernel launches, replayed bunches and captured graphs to 0."""
+    ggd_kernel.launches = 0
+    step_mod.bunches_replayed = step_mod.graphs_captured = 0
+
+
+def replay_check(label: str, bunches: int) -> str:
+    """Require that ``bunches`` one-device bunches since
+    ``zero_train_counts`` ran as replays of captured graphs, but for one
+    eager warm-up bunch per capture. -> a line's worth of both counts."""
+    replayed, captured = step_mod.bunches_replayed, step_mod.graphs_captured
+    if not (captured >= 1 and replayed == bunches - captured):
+        raise SystemExit(f"{label}: {replayed} bunches replayed after "
+                         f"{captured} captures for {bunches} bunches")
+    return f"{replayed} replayed + {captured} warm-up bunches"
+
+
 def train_phase(dev, root: str) -> dict:
     tfx = write_train_fixtures(root, SEED)
     init_wts = os.path.join(root, "init.wts")
@@ -692,14 +733,15 @@ def train_phase(dev, root: str) -> dict:
           f"sentences, traincache {tfx['traincache']}")
 
     want = ml_bunches(tfx) * EPOCHS
-    ggd_kernel.launches = 0
+    zero_train_counts()
     t0 = time.perf_counter()
     run_train(tfx, init_wts, os.path.join(root, "cuda"), "cuda")
     torch.cuda.synchronize()
     cuda_s = time.perf_counter() - t0
     launches = ggd_kernel.launches
     print(f"train   cuda: {EPOCHS} epochs in {cuda_s:.2f} s; "
-          f"ggd_kernel.launches = {launches}, ML bunches = {want}")
+          f"ggd_kernel.launches = {launches}, ML bunches = {want} "
+          f"({replay_check('train', want)})")
     if launches != want:
         raise SystemExit(f"GGD kernel launched {launches} times for {want} "
                          "ML bunches")
@@ -751,6 +793,136 @@ def train_phase(dev, root: str) -> dict:
             "quiet": {"wts": os.path.join(root, "cuda_lr", "mlp.2.wts"),
                       "norm": tfx["norm"]},
             "tfx": tfx, "init_wts": init_wts}
+
+
+def state_tensors(state) -> list[torch.Tensor]:
+    """Every tensor a training bunch writes: weights, velocity, alpha."""
+    return ([t.detach() for layer in param_layers(state.model)
+             for t in layer.values()]
+            + [t for layer in state.velocity for t in layer.values()]
+            + [state.alpha])
+
+
+def train_graph_phase(dev) -> dict:
+    """``train_chunk`` replaying its captured bunch (``graph=True``)
+    against its eager loop (``graph=False``) at full width, from the same
+    state over the same chunk, for each of ``GRAPH_CHUNKS``: weights,
+    velocity and alpha bit for bit, launches and replays counted; ms per
+    bunch by the host clock (ending in a synchronise), then both again in
+    turns; device busy us and launches per bunch (``torch.profiler``); the
+    first call's ms, one eager warm-up bunch plus the capture.
+    -> GGD launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(SEED)
+    noisy = rng.normal(size=(GRAPH_FRAMES, 257)).astype(np.float32)
+    clean = (0.8 * noisy + rng.normal(scale=0.1, size=noisy.shape)
+             ).astype(np.float32)
+    noisy, clean = (torch.from_numpy(a).to(dev) for a in (noisy, clean))
+    layers = init_params(SEED, DEFAULT_LAYERSIZES)
+    launches = 0
+    for m, dtype, n in GRAPH_CHUNKS:
+        starts = torch.from_numpy(rng.integers(
+            0, GRAPH_FRAMES - 7, size=(n, m))).to(dev)
+        hyper = TrainHyper(bunchsize=m, compute_dtype=dtype)
+        states, first_ms, ms = {}, {}, {}
+
+        def chunk(graph: bool, rows: torch.Tensor) -> float:
+            """ms per bunch of ``rows`` on ``graph``'s state."""
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_chunk(states[graph], noisy, clean, rows, GRAPH_LRATE,
+                        hyper, graph=graph)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / rows.shape[0]
+
+        zero_train_counts()
+        for graph in (True, False):
+            states[graph] = make_train_state(params_from_numpy(layers, dev))
+            first_ms[graph] = chunk(graph, starts[:1])
+            ms[graph] = [chunk(graph, starts[1:])]
+        label = f"M={m} {dtype}"
+        replays = replay_check(f"train graph {label}", n)
+        if ggd_kernel.launches != 2 * n:
+            raise SystemExit(f"train graph {label}: {ggd_kernel.launches} "
+                             f"GGD launches for 2 x {n} bunches")
+        pairs = list(zip(state_tensors(states[True]),
+                         state_tensors(states[False])))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            worst = max(float((a - b).abs().max()) for a, b in pairs)
+            raise SystemExit(f"train graph {label}: the replayed chunk "
+                             f"differs from the eager one by {worst:.3e}")
+        for graph in (True, False, False, True):
+            ms[graph].append(chunk(graph, starts))
+        profiles = {}
+        for graph in (True, False):
+            busy, n_ops, _ = device_profile(
+                lambda: train_chunk(states[graph], noisy, clean, starts[:1],
+                                    GRAPH_LRATE, hyper, graph=graph),
+                GRAPH_PROFILED, whole=True)
+            profiles[graph] = (busy, n_ops)
+        # A chunk read per call (device_resident="never") brings new frame
+        # tensors, so its first bunch is a warm-up and a capture again.
+        reserved = torch.cuda.memory_reserved()
+        again = []
+        for _ in range(GRAPH_RECAPTURES):
+            noisy = noisy.clone()
+            again.append(chunk(True, starts[:1]))
+        grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+        eager_one = [chunk(False, starts[:1]) for _ in range(3)]
+        launches += ggd_kernel.launches
+
+        def times(graph: bool) -> str:
+            return ", ".join(f"{t:.4f}" for t in ms[graph])
+
+        print(f"tgraph  {label}, full width, {n} bunches from one state "
+              f"(weights, velocity and alpha bitwise equal; {replays}): "
+              f"ms per bunch replayed {times(True)}, eager {times(False)} "
+              f"(first timing after the first call, then in turns); first "
+              f"call (one warm-up bunch + capture) {first_ms[True]:.2f} ms "
+              f"against one eager bunch's {first_ms[False]:.2f} ms; with new "
+              f"frames {', '.join(f'{t:.2f}' for t in again)} ms against "
+              f"{', '.join(f'{t:.2f}' for t in eager_one)} ms for one eager "
+              f"bunch, memory reserved {grown:+.0f} MiB over "
+              f"{GRAPH_RECAPTURES} captures; device busy per "
+              f"bunch (torch.profiler, {GRAPH_PROFILED} bunches) replayed "
+              f"{profiles[True][0]:.1f} us over {profiles[True][1]:.0f} "
+              f"launches, eager {profiles[False][0]:.1f} us over "
+              f"{profiles[False][1]:.0f}; {card}")
+    print(f"tgraph  train graph phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+# The train-graph phase runs in a child process.  On an H100 (torch 2.11)
+# a process that traced training bunches with torch.profiler and then
+# captured more bunch graphs (the per-chunk and pipeline training runs)
+# lost the first device record of every later trace window: the streaming
+# phase's whole-window hop profiles then failed, in every window.  Neither
+# alone did it.  The child keeps those traces out of this process, whose
+# later traces (bf16 phase) take eager bunches.
+GRAPH_CHILD = """
+import torch
+import chip_smoke
+print("tgraph-launches", chip_smoke.train_graph_phase(torch.device("cuda")))
+"""
+
+
+def train_graph_child(root: str) -> int:
+    """``train_graph_phase`` in a child process on the card, its lines
+    printed here.  -> its GGD launches."""
+    text, = wait_ranks([start_rank(["-u", "-c", GRAPH_CHILD],
+                                   os.path.join(root, "train_graph.log"))],
+                       "train graph")
+    lines = text.splitlines()
+    launches = [int(line.split()[1]) for line in lines
+                if line.startswith("tgraph-launches ")]
+    if len(launches) != 1:
+        raise SystemExit(f"train graph: {text[-3000:]}")
+    for line in lines:
+        if line.startswith("tgraph  "):
+            print(line)
+    return launches[0]
 
 
 def train_rate(dev, tfx: dict, init_wts: str,
@@ -980,7 +1152,7 @@ def chain(root: str, p: dict) -> int:
     launches = 0
     for epoch in (1, 2):
         start = init if epoch == 1 else os.path.join(out, "mlp.1.wts")
-        ggd_kernel.launches = 0
+        zero_train_counts()
         t0 = time.perf_counter()
         cli(["bptrain", *finetune_args(p, start, out, epoch)])
         torch.cuda.synchronize()
@@ -988,7 +1160,8 @@ def chain(root: str, p: dict) -> int:
         values = check_log(os.path.join(out, f"mlp.{epoch}.log"))
         print(f"pipe    bptrain epoch {epoch} on the card: {dt:.2f} s; "
               f"ggd_kernel.launches = {ggd_kernel.launches}, ML bunches = "
-              f"{want}; CV squared error, abs, GGD loglik = {values}")
+              f"{want} ({replay_check(f'bptrain epoch {epoch}', want)}); "
+              f"CV squared error, abs, GGD loglik = {values}")
         if ggd_kernel.launches != want:
             raise SystemExit(f"bptrain epoch {epoch}: GGD kernel launched "
                              f"{ggd_kernel.launches} times for {want} bunches")
@@ -998,7 +1171,7 @@ def chain(root: str, p: dict) -> int:
     if sidecars:
         raise SystemExit(f"bptrain wrote state sidecars: {sidecars}")
 
-    ggd_kernel.launches = 0
+    zero_train_counts()
     cli(["train", "--fea-file", p["noisy"], "--targ-file", p["clean"],
          "--norm-file", p["norm"], "--init-wts", init,
          "--out-dir", os.path.join(root, "train"),
@@ -1009,6 +1182,7 @@ def chain(root: str, p: dict) -> int:
     if ggd_kernel.launches != 2 * want:
         raise SystemExit(f"train: GGD kernel launched {ggd_kernel.launches} "
                          f"times for {2 * want} bunches")
+    replays = replay_check("train --epochs 2", 2 * want)
     launches += ggd_kernel.launches
     for name in ("mlp.1.wts", "mlp.2.wts"):
         with open(os.path.join(out, name), "rb") as f1, \
@@ -1016,8 +1190,8 @@ def chain(root: str, p: dict) -> int:
             if f1.read() != f2.read():
                 raise SystemExit(f"bptrain chain and train --epochs 2 "
                                  f"differ in {name}")
-    print("pipe    train --epochs 2 on the card: mlp.1.wts and mlp.2.wts "
-          "byte-identical to the bptrain chain's")
+    print(f"pipe    train --epochs 2 on the card ({replays}): mlp.1.wts "
+          f"and mlp.2.wts byte-identical to the bptrain chain's")
     return launches
 
 
@@ -1594,15 +1768,18 @@ def big_bunch_ms(dev, tfx: dict, init_wts: str) -> None:
             hyper = TrainHyper(bunchsize=m, compute_dtype=name)
             state = load_checkpoint(init_wts, dev)
             rows = starts[:1, :m]
+            # Eager: a replayed bunch's kernels, and no graph under the
+            # tracer in this process (GRAPH_CHILD).
             busy, launches, kernels = device_profile(
                 lambda: train_chunk(state, noisy, clean, rows,
-                                    float(AGREE_LRATE), hyper), 3)
+                                    float(AGREE_LRATE), hyper, graph=False),
+                3)
             products = sum(us for k, us, _ in kernels
                            if any(key in k for key in PRODUCT_KEYS))
             casts = sum(us for k, us, _ in kernels if "bfloat16_copy" in k)
             top, top_us, top_n = kernels[0]
             print(f"bf16    train bunch M={m} {name} (torch.profiler, 3 "
-                  f"bunches): {launches:.0f} device launches, busy "
+                  f"eager bunches): {launches:.0f} device launches, busy "
                   f"{busy:.1f} us: products {products:.1f}, casts to "
                   f"bfloat16 {casts:.1f}, the rest "
                   f"{busy - products - casts:.1f}; largest: {top_n:.0f} x "
@@ -1614,10 +1791,11 @@ def bf16_train(dev, root: str, tfx: dict, init_wts: str) -> int:
     compute_dtype=bfloat16`` on the card.  -> GGD kernel launches."""
     flag = ("--compute-dtype", "bfloat16")
     want = ml_bunches(tfx)
-    ggd_kernel.launches = 0
+    zero_train_counts()
     run_train(tfx, init_wts, os.path.join(root, "cuda"), "cuda", *flag)
     torch.cuda.synchronize()
     launches = ggd_kernel.launches
+    replays = replay_check("train --compute-dtype bfloat16", want * EPOCHS)
     run_train(tfx, init_wts, os.path.join(root, "cuda2"), "cuda", *flag)
     names = [f"mlp.{e}.wts" for e in range(1, EPOCHS + 1)]
 
@@ -1630,17 +1808,18 @@ def bf16_train(dev, root: str, tfx: dict, init_wts: str) -> int:
     with open(os.path.join(root, "cuda", "mlp.1.log")) as f:
         logged = "compute_dtype = bfloat16" in f.read()
     os.makedirs(os.path.join(root, "bptrain"))
-    ggd_kernel.launches = 0
+    zero_train_counts()
     cli(["bptrain", *finetune_args(tfx, init_wts,
                                    os.path.join(root, "bptrain"), 1,
                                    "compute_dtype=bfloat16")])
     torch.cuda.synchronize()
     chain = same("cuda", "bptrain", "mlp.1.wts")
     print(f"bf16    train --compute-dtype bfloat16 on the card: "
-          f"ggd_kernel.launches = {launches} for {want * EPOCHS} ML bunches; "
-          f"second run byte-identical = {rerun}; bptrain "
+          f"ggd_kernel.launches = {launches} for {want * EPOCHS} ML bunches "
+          f"({replays}); second run byte-identical = {rerun}; bptrain "
           f"compute_dtype=bfloat16 epoch 1 byte-identical to train's = "
-          f"{chain}, {ggd_kernel.launches} launches for {want} bunches")
+          f"{chain}, {ggd_kernel.launches} launches for {want} bunches "
+          f"({replay_check('bptrain compute_dtype=bfloat16', want)})")
     if not (launches == want * EPOCHS and ggd_kernel.launches == want
             and rerun and chain and logged):
         raise SystemExit("bfloat16 training on the card: launches, reruns, "
@@ -1707,7 +1886,10 @@ def bf16_extras(dev, root: str, fx: dict, tfx: dict, init_wts: str) -> None:
     starts = torch.arange(BUNCH, device=dev)[None]
     hyper = TrainHyper(compute_dtype="bfloat16")
     state = load_checkpoint(init_wts, dev)
-    train_chunk(state, noisy, clean, starts, float(AGREE_LRATE), hyper)
+    # Eager bunches (graph=False): no graph under the tracer in this
+    # process (GRAPH_CHILD).
+    train_chunk(state, noisy, clean, starts, float(AGREE_LRATE), hyper,
+                graph=False)
     # The tracer now and then loses a window's device records (see
     # ``device_profile``): a bunch launches the same kernels every time, so
     # a fault of ``profile_trace`` shows in every trace, a lost record in one.
@@ -1716,7 +1898,7 @@ def bf16_extras(dev, root: str, fx: dict, tfx: dict, init_wts: str) -> None:
         torch.cuda.synchronize()
         with profile_trace(log_dir):
             train_chunk(state, noisy, clean, starts, float(AGREE_LRATE),
-                        hyper)
+                        hyper, graph=False)
             torch.cuda.synchronize()
         files = [f for f in os.listdir(log_dir)
                  if f.endswith(".pt.trace.json")]
@@ -2501,7 +2683,7 @@ def overlap_unsharded(dev, tfx: dict, init_wts: str) -> int:
                           cfg.train_sent_range, cfg.traincache)
     frames = load_device_frames(ds, dev)
     states = {}
-    ggd_kernel.launches = 0
+    zero_train_counts()
     for name, step in (("overlap", train_chunk_overlap),
                        ("flat", train_chunk)):
         states[name] = load_checkpoint(init_wts, dev)
@@ -2520,7 +2702,8 @@ def overlap_unsharded(dev, tfx: dict, init_wts: str) -> int:
           f"{cfg.lrate} from the same weights: train_chunk_overlap against "
           f"train_chunk, largest weight difference {worst:.3e}, bitwise "
           f"= {bitwise}; ggd_output_grad (fused) launches {launches} for "
-          f"2 x {bunches} ML bunches")
+          f"2 x {bunches} ML bunches (train_chunk: "
+          f"{replay_check('mesh=None train_chunk', bunches)})")
     if not bitwise:
         raise SystemExit(f"mesh=None: train_chunk_overlap differs from "
                          f"train_chunk by {worst:.3e}")
@@ -2697,7 +2880,7 @@ def examples_phase(root: str, fx: dict) -> dict:
     n_train = len(DEMO_CONDITIONS) - 1
     work = os.path.join(root, "demo")
     lps_kernel.launches = 0
-    ggd_kernel.launches = 0
+    zero_train_counts()
     t = time.perf_counter()
     results = demo_pipeline.run(work, reference, "cuda",
                                 log=lambda s: None)
@@ -2725,7 +2908,8 @@ def examples_phase(root: str, fx: dict) -> dict:
           f"{len(DEMO_CONDITIONS)} conditions of {DEMO_SECONDS} s: "
           f"{seconds:.2f} s; {len(results)} held out; LPS launches "
           f"{lps_kernel.launches}, ggd_output_grad launches "
-          f"{ggd_kernel.launches} ({bunches} ML bunches per epoch); "
+          f"{ggd_kernel.launches} ({bunches} ML bunches per epoch; "
+          f"{replay_check('demo_pipeline', 40 * bunches)}); "
           f"deleting its {len(trained)} .wts")
     if (len(results) != 1 or len(trained) != 40
             or (lps_kernel.launches, ggd_kernel.launches) != want):
@@ -2849,6 +3033,7 @@ def main() -> int:
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
         train = train_phase(dev, root)
+        graph_launches = train_graph_child(root)
         native_phase(dev, os.path.join(root, "native"), train)
         pipe = pipeline_phase(os.path.join(root, "pipeline"),
                               train["quiet"])
@@ -2885,7 +3070,8 @@ def main() -> int:
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
-        "launches": (train["launches"] + pipe["ggd_launches"]
+        "launches": (train["launches"] + graph_launches
+                     + pipe["ggd_launches"]
                      + bf16["ggd_launches"] + over["fused"]
                      + examples["ggd"] + benches["ggd"]),
         "max_abs_err": ggd["max_abs_err"],

@@ -21,7 +21,9 @@ identical.
   error is kept, from (M, D) alone (``ggd_plan`` in the library).
 - ``launches`` counts ``ggd_output_grad_cuda``'s calls that launched the
   kernel (and nothing else), so a run can show that its main path went
-  through the kernel.
+  through the kernel.  A training bunch replayed from a CUDA graph runs
+  the kernel without calling the wrapper: ``train/step.py`` adds one per
+  replay and takes back the capture's call, which launched nothing.
 
 The split form, for data-parallel training: alpha is a statistic of the
 GLOBAL bunch, of which a rank holds only its rows, so the other ranks'

@@ -27,12 +27,14 @@ def sgd_momentum_init(params: list[dict]) -> list[dict]:
 
 @torch.no_grad()
 def sgd_momentum_update(params: list[dict], velocity: list[dict],
-                        grads: list[dict], lr: float, momentum: float,
-                        weightcost: float, n: int) -> None:
+                        grads: list[dict], lr: float | torch.Tensor,
+                        momentum: float, weightcost: float, n: int) -> None:
     """One reference-exact update, IN PLACE on ``params`` and ``velocity``
     (lists of ``{"w", "b"}`` tensors); ``grads`` are bunch-summed and ``n``
     is the bunch size (1 for the ``natural`` scale).  Each operation rounds
-    to float32 where the JAX expression does."""
+    to float32 where the JAX expression does.  ``lr`` is a float32-valued
+    float or a 0-dim float32 tensor on the params' device (a captured
+    graph's rate): ``lr * step`` is the same float32 product either way."""
     for p_l, v_l, g_l in zip(params, velocity, grads):
         for key, wc in (("w", weightcost), ("b", 0.0)):
             p, v = p_l[key], v_l[key]

@@ -1,9 +1,25 @@
-"""The training step: one Python loop over the bunches of a chunk.
+"""The training step: one loop over the bunches of a chunk.
 
 Port of ``tpu_se/train/step.py`` (reference per-bunch loop
 ``BP_GPU.cu:152-185,308-440``).  Where JAX runs the bunches of a chunk
-inside one ``lax.scan``, the port runs them as a Python loop of eager
-launches on the card:
+inside one ``lax.scan``, the port runs them as a Python loop.  On one card
+(``mesh=None``, no dropout) the loop replays one captured CUDA graph per
+bunch; elsewhere, and with ``graph=False``, each bunch is its ~80 eager
+launches:
+
+- The graph holds a whole bunch: the splice gather, the forward pass, the
+  GGD kernel, the backward pass and the update.  It reads the bunch's
+  window starts from a static ``[M]`` buffer, filled by one device copy
+  per bunch, and the rate from a 0-dim float32 buffer, so one graph serves
+  every epoch's rate; it writes the weights and velocity in place.  The
+  replays are bit for bit the eager loop (``graph=False``), which stays as
+  the reference.  The graph lives on the ``TrainState`` and is captured
+  again when the frames, M, the hyper-parameters or the parameter and
+  velocity tensors change: a chunk read per call (``device_resident=
+  "never"``) captures once per chunk.  A capture follows one eager warm-up
+  bunch of the chunk on a side stream, which loads the kernel library,
+  cuBLAS and autograd's state; the capture itself runs nothing, so a chunk
+  of n bunches trains n bunches.
 
 - The 7-frame context splice is a device gather from the chunk's (or the
   resident span's) frame matrix; the chunk's window starts arrive as one
@@ -44,7 +60,7 @@ launches on the card:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -52,6 +68,7 @@ import torch
 
 from tpu_se_torch.losses import output_grad_and_alpha
 from tpu_se_torch.models import FFN
+from tpu_se_torch.ops import ggd_kernel
 from tpu_se_torch.parallel.tensor import TensorParallelFFN
 from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
 from tpu_se_torch.utils.device import resolve_compute_dtype
@@ -92,11 +109,36 @@ class TrainHyper:
                                resolve_compute_dtype(self.act_dtype))
 
 
+# Bunches run as replays of a captured graph, and graphs captured (each
+# after one eager warm-up bunch), over every state of the process.  A
+# replay launches the GGD kernel as the eager bunch does, so
+# ``ggd_kernel.launches`` gains one per replay of a graph that holds one
+# launch; the capture, which launches nothing, is not counted.
+bunches_replayed = 0
+graphs_captured = 0
+
+
+@dataclass
+class _BunchGraph:
+    """One bunch captured on a card, and what it was captured for."""
+    key: tuple                  # _graph_key of the capture
+    held: tuple                 # the keyed objects, kept alive with the graph
+    graph: torch.cuda.CUDAGraph
+    stream: torch.cuda.Stream   # the warm-up's and the capture's
+    starts: torch.Tensor        # [M] int64 window starts the graph reads
+    lr: torch.Tensor            # 0-dim float32 rate the graph's update takes
+    alpha: torch.Tensor         # the graph's alpha [D], in its memory pool
+    ggd_launches: int           # GGD kernel launches in one replay
+
+
 @dataclass
 class TrainState:
     model: FFN | TensorParallelFFN   # trained in place
     velocity: list              # [{"w", "b"}] tensors, like the params
     alpha: torch.Tensor         # last-bunch GGD scale factors [D]
+    # train_chunk's captured bunch on a card (one per state).
+    _graph: _BunchGraph | None = field(default=None, repr=False,
+                                       compare=False)
 
 
 def param_layers(model: FFN) -> list[dict]:
@@ -124,7 +166,7 @@ def gather_splice(frames: torch.Tensor, starts: torch.Tensor, context: int
 def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
                 starts: torch.Tensor, lr: float, hyper: TrainHyper,
                 generator: torch.Generator | None = None,
-                mesh=None) -> TrainState:
+                mesh=None, graph: bool = True) -> TrainState:
     """Train all full bunches of one chunk, in place; returns ``state``.
 
     noisy/clean: [F, D] normalized frames; starts: [n_bunches, M] int64
@@ -132,6 +174,14 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     float32 first, as JAX's ``jnp.float32(lr)``.  ``generator`` (on that
     device) draws the dropout masks when ``hyper.dropout`` is set.  alpha
     after the call is the last bunch's.
+
+    On a card with ``mesh=None`` and no dropout, ``graph`` replays one
+    captured CUDA graph per bunch (module docstring), bit for bit the eager
+    loop that ``graph=False`` runs; a capture or replay that fails raises.
+    These stay eager: a mesh (its collectives; NCCL under capture is not
+    done yet, and gloo cannot be captured), dropout with a generator (the
+    masks' Philox state would have to advance inside the graph), and the
+    CPU (no graphs).
 
     With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``starts`` holds the
     columns ``[n_bunches, M / mesh.data]`` of this rank's data index
@@ -158,26 +208,125 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
         dropout_rows = (mesh.data_rank * rows, hyper.bunchsize)
     layers = param_layers(state.model)
     params = [p for layer in layers for p in (layer["w"], layer["b"])]
-    alpha = state.alpha
+
+    def bunch_step(bunch: torch.Tensor, rate) -> torch.Tensor:
+        """One bunch, in place on the weights and velocity -> its alpha.
+        ``rate`` is the float32-rounded float or the graph's 0-dim
+        buffer: the update's product rounds to the same float32 bits."""
+        x = gather_splice(noisy, bunch, hyper.context)
+        targ = clean[bunch + hyper.targ_offset]
+        out = state.model(x, dropout=dropout, generator=generator,
+                          compute_dtype=hyper.compute_dtype,
+                          act_dtype=hyper.act_dtype,
+                          dropout_rows=dropout_rows)
+        dedx, alpha = output_grad_and_alpha(out.detach(), targ, hyper.beta,
+                                            hyper.ml, mesh)
+        grads = torch.autograd.grad(out, params, grad_outputs=dedx)
+        if mesh is not None:
+            grads = mesh.all_reduce_sum_flat(grads, "data")
+        sgd_momentum_update(
+            layers, state.velocity,
+            [{"w": gw, "b": gb} for gw, gb in zip(grads[::2], grads[1::2])],
+            rate, hyper.momentum, hyper.weightcost, opt_n)
+        return alpha
+
     with torch.enable_grad():
-        for bunch in starts:
-            x = gather_splice(noisy, bunch, hyper.context)
-            targ = clean[bunch + hyper.targ_offset]
-            out = state.model(x, dropout=dropout, generator=generator,
-                              compute_dtype=hyper.compute_dtype,
-                              act_dtype=hyper.act_dtype,
-                              dropout_rows=dropout_rows)
-            dedx, alpha = output_grad_and_alpha(out.detach(), targ,
-                                                hyper.beta, hyper.ml, mesh)
-            grads = torch.autograd.grad(out, params, grad_outputs=dedx)
-            if mesh is not None:
-                grads = mesh.all_reduce_sum_flat(grads, "data")
-            sgd_momentum_update(
-                layers, state.velocity,
-                [{"w": gw, "b": gb} for gw, gb in zip(grads[::2], grads[1::2])],
-                lr, hyper.momentum, hyper.weightcost, opt_n)
-    state.alpha = alpha
+        if graph and starts.shape[0] and _replays(noisy.device, mesh, dropout):
+            state.alpha = _replay_chunk(state, noisy, clean, starts, lr,
+                                        hyper, bunch_step, params)
+        else:
+            for bunch in starts:
+                state.alpha = bunch_step(bunch, lr)
     return state
+
+
+def _replays(device: torch.device, mesh, dropout: tuple | None) -> bool:
+    """Whether ``train_chunk(graph=True)`` replays a captured bunch: on a
+    card, without a mesh, without dropout masks (``dropout`` is
+    ``hyper.dropout`` when a generator is given, else None)."""
+    return device.type == "cuda" and mesh is None and dropout is None
+
+
+def _graph_key(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
+               params: list, m: int, hyper: TrainHyper) -> tuple[tuple, tuple]:
+    """(key, held) of a bunch graph: the objects it reads and writes, by
+    identity and address, with M and ``hyper``; ``held`` keeps them alive
+    beside the graph, so no identity is reused while the key stands."""
+    tensors = (noisy, clean, *params,
+               *(v for layer in state.velocity for v in layer.values()))
+    held = (state.model, *tensors)
+    return ((m, hyper, tuple(map(id, held)),
+             tuple(t.data_ptr() for t in tensors)), held)
+
+
+def _replay_chunk(state: TrainState, noisy: torch.Tensor,
+                  clean: torch.Tensor, starts: torch.Tensor, lr: float,
+                  hyper: TrainHyper, bunch_step, params: list
+                  ) -> torch.Tensor:
+    """Every bunch of ``starts`` as a replay of the state's graph, captured
+    first (after one eager bunch) if the state has none for these
+    tensors -> the last bunch's alpha, copied out of the graph's pool."""
+    global bunches_replayed
+    key, held = _graph_key(state, noisy, clean, params, starts.shape[1],
+                           hyper)
+    g = state._graph
+    rest = starts
+    alpha = None
+    with torch.cuda.device(noisy.device):
+        if g is None or g.key != key:
+            g, alpha = _capture(starts[0], lr, bunch_step, key, held, g)
+            state._graph = g          # the old graph and its pool go
+            rest = starts[1:]
+        if rest.shape[0]:
+            g.lr.fill_(lr)
+            for bunch in rest:
+                g.starts.copy_(bunch)
+                g.graph.replay()
+            bunches_replayed += rest.shape[0]
+            ggd_kernel.launches += g.ggd_launches * rest.shape[0]
+            alpha = g.alpha
+        return alpha.clone()
+
+
+def _capture(first: torch.Tensor, lr: float, bunch_step, key: tuple,
+             held: tuple, old: _BunchGraph | None
+             ) -> tuple[_BunchGraph, torch.Tensor]:
+    """Train ``first`` eagerly on a side stream, then capture one bunch on
+    it that reads its starts and rate from static buffers -> (the graph,
+    the eager bunch's alpha).  Runs with ``first``'s card current.
+
+    A state's next graph is captured into its ``old`` one's memory pool
+    and on its stream, while the old graph still holds the pool, and the
+    old graph is never replayed after: so a chunk read per call does not
+    add a pool and a stream's cached blocks per capture.  Unlike
+    ``torch.cuda.graph``, no synchronise and no ``empty_cache`` precede
+    the capture: what this capture allocates comes from the pool."""
+    global graphs_captured
+    if old is not None and old.stream.device != first.device:
+        old = None
+    current = torch.cuda.current_stream()
+    starts = torch.empty(first.shape, dtype=torch.int64, device=first.device)
+    rate = torch.empty((), dtype=torch.float32, device=first.device)
+    side = torch.cuda.Stream() if old is None else old.stream
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        alpha = bunch_step(first, lr)
+    # Read by the caller on the current stream, freed after it.
+    alpha.record_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    launches = ggd_kernel.launches
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=None if old is None else old.graph.pool())
+        try:
+            static_alpha = bunch_step(starts, rate)
+        finally:
+            graph.capture_end()
+    held_launches = ggd_kernel.launches - launches
+    ggd_kernel.launches = launches
+    current.wait_stream(side)
+    graphs_captured += 1
+    return _BunchGraph(key, held, graph, side, starts, rate, static_alpha,
+                       held_launches), alpha
 
 
 @torch.no_grad()
