@@ -38,13 +38,28 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    at beta = 1; times both at M = 128 and 4096, D = 257, by events and by
    device time (CUDA-graph replay), beside the byte bound and an empty
    kernel launched the same way;
-7. training phase: writes a 24-sentence synthetic LPS pfile pair and a
+7. optimizer kernel phase: ``sgd_update_cuda`` against
+   ``sgd_update_plain`` on the card, bit for bit (params and velocity):
+   first that the card's ``g / n`` by a host scalar is ``g *
+   float32(1/n)`` at n = 3 and 100 (the kernel's rounding rests on it);
+   then the full-width model's 12,605,697 parameters at n in {1, 3, 100,
+   128}, weight cost 0 and 1e-5, the rate as a float and as a 0-dim
+   tensor, with -0.0 steps and an inf weight in the last bias; views at
+   1, 2 and 3 floats into one flat buffer (every tensor unaligned); one
+   captured CUDA graph replayed at two rates; a list longer than one
+   table (two launches); device time of the full-width update by
+   CUDA-graph replay beside the byte bound (20 bytes per parameter at
+   3.35 TB/s), the plain ops' and an empty kernel launched the same way,
+   with the card's name and power limit;
+8. training phase: writes a 24-sentence synthetic LPS pfile pair and a
    full-width initial ``.wts`` (``python -m tpu_se_torch gen-rand-net``),
    runs ``python -m tpu_se_torch train --epochs 2`` in-process on the card
    with the defaults (parity, M = 128, ML-GGD, beta = 1, lrate 0.1),
-   checks its outputs and that the GGD kernel launched once per ML bunch,
-   and that a second card run writes a byte-identical ``mlp.2.wts``; then
-   runs the same command at ``--lrate 0.001`` on the card and on
+   checks its outputs and that the GGD kernel launched once per ML bunch
+   (and the optimizer kernel once per GGD launch, on every one-device
+   card run here and below), and that a second card run writes a
+   byte-identical ``mlp.2.wts``; then runs the same command at
+   ``--lrate 0.001`` on the card and on
    ``--device cpu`` and holds their weight changes to each other (per
    layer, relative difference <= 1e-3) and their CV metrics to rtol 1e-4;
    times one epoch's training; every one-device training run on the card
@@ -59,13 +74,15 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    state over one chunk of seeded resident frames, M = 128 float32 (400
    bunches) and M = 4096 bfloat16 (50 bunches), at lrate 0.1: weights,
    velocity and alpha bitwise equal, one GGD launch per bunch, replays =
-   bunches - 1; ms per bunch of both (host clock, then in turns), device
-   busy us and launches per bunch (``torch.profiler``), the first call's
+   bunches - 1; a fresh replayed chunk with the optimizer kernel bitwise
+   equal to one with the plain update (``train.step.sgd_momentum_update``
+   replaced by ``sgd_update_plain``); ms per bunch of both (host clock,
+   then in turns), device busy us and launches per bunch (``torch.profiler``), the first call's
    ms (a warm-up bunch and the capture) and a call's with new frames (a
    capture again; the memory this adds) against an eager bunch's, beside
    the card's name and power limit (in a child process, so that its
    traces of training bunches stay out of this one);
-8. pipeline phase: the paper's whole pipeline through the CLI, in-process,
+9. pipeline phase: the paper's whole pipeline through the CLI, in-process,
    at full width, from a 24-sentence 16 kHz noisy/clean wav corpus:
    ``lps-extract --device cuda --jobs 4`` over the 48 wavs (one LPS kernel
    launch per file, counted), held against ``--device cpu`` on a copy
@@ -86,7 +103,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    above the overflowing model's -20.0);
    prints the phase's wall time and ``lps-extract``'s time per file, with
    the analysis basis uploaded per file and kept on the card;
-9. streaming phase, at the slice phase's full-width model and its four
+10. streaming phase, at the slice phase's full-width model and its four
    utterances: ``decode --stream 4096 --device cuda`` through the CLI
    (one captured CUDA graph replayed per hop; replays counted, one LPS
    kernel launch in each), its waves within 1 int16 LSB of the card's
@@ -101,7 +118,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    hop's profile, wall p50/p99 over 300 ``push`` calls, ``push_many``
    hops/s with the float and the int16 wire, and the channels of
    real-time audio that is (a hop is 16 ms at 16 kHz);
-10. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
+11. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
    sums, everything else float32), at the same full-width model and
    fixtures; nothing falls back to float32 or to the CPU:
    ``FFN`` on the card against the CPU's formulation (widened operands)
@@ -130,7 +147,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    ``profile_trace``, whose Chrome trace must hold CUDA kernels, one of
    them the GGD kernel (in one of three traces: the tracer now and then
    loses a window's device records);
-11. data-parallel phase, at the training phase's full-width fixtures; the
+12. data-parallel phase, at the training phase's full-width fixtures; the
    ranks are child processes of ``python -m tpu_se_torch train`` (and of
    ``python -m tpu_se_torch.bench.dp_epoch`` for the timings), each
    cluster under its own time limit; a child's unexpected exit code, a
@@ -154,7 +171,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    card, ``--mesh-model 3`` at a hidden width of 2048, NCCL with two ranks
    on one card); ms per bunch for one rank fused, one rank over NCCL and
    two ranks over gloo, with the bytes each collective moves;
-12. tensor-parallel phase, at the same fixtures, ranks as child processes
+13. tensor-parallel phase, at the same fixtures, ranks as child processes
    of ``python -m tpu_se_torch train --mesh-model 2`` sharing the card over
    gloo at ``--lrate 0.001``: a 1 x 2 and a 2 x 2 mesh, each twice; each
    held to the one-process card run (weight changes within 1e-3), its
@@ -164,7 +181,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    data axis' two all-reduces; the model axis' two all-reduces and one
    all-gather; per CV batch one of each; the checkpoint's gathers); ms per
    bunch of both through ``bench/dp_epoch --mesh-model 2``;
-13. decoder-mesh phase: ``bench/mesh_decode`` as two ranks sharing the
+14. decoder-mesh phase: ``bench/mesh_decode`` as two ranks sharing the
    card over gloo -- ``Enhancer(mesh=)`` (``enhance`` plain and with
    ``blend="auto"``, ``enhance_batch``, ``enhance_batch_waves``) of the
    slice phase's four utterances and ``StreamingEnhancer(mesh=)`` of 8
@@ -173,7 +190,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    LSB (bitwise by form reported), enhanced LPS within rtol 1e-5, atol
    1e-5, each rank's LPS launches equal to the one process's and 16 graph
    replays;
-14. host chunk loader phase (run after the training phase, at its
+15. host chunk loader phase (run after the training phase, at its
    fixtures): compiles ``tpu_se_torch/csrc/chunk_loader.cc`` with the host
    compiler (timed) and loads the library; reads, byte-swaps and
    normalises the training span (noisy + clean) through the library and
@@ -182,7 +199,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    rows by each route, whose ``mlp.2.wts`` must be byte-identical (and is
    compared with the resident run's); epoch samples/s per chunk by both
    routes beside the resident epoch's;
-15. overlapped-step phase (after the data-parallel phase):
+16. overlapped-step phase (after the data-parallel phase):
    ``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
    card, one epoch each from the same weights (bitwise, or the smoke
    fails; one fused GGD launch per bunch); then, through
@@ -199,7 +216,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    per hidden layer overlapped, none flat), the us by which NCCL kernels
    overlap GEMM kernels on the device, and where the host's time goes
    (the host ops of most self time per bunch);
-16. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
+17. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
    the slice phase's longest utterance with its model (graph replays = hops
    and two eager LPS calls per enhancer; the single stream as long as the
    batch decode), and ``tpu_se_torch.examples.demo_pipeline`` at full
@@ -207,14 +224,14 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    corpus (``bench/fixtures.py:write_demo_corpus``): finite SegSNR, LSD
    and STOI for the held-out condition, one LPS launch per wav and one GGD
    launch per ML bunch, its 40 ``.wts`` deleted after;
-17. benches phase: each measurement module (``tpu_se_torch/bench/``
+18. benches phase: each measurement module (``tpu_se_torch/bench/``
    ``train`` in float32 and bfloat16, ``decode``, ``stream``, ``loader``,
    ``build``, ``scaling`` at one rank) once at short settings
    (``BENCH_RUNS``), each module's ``main`` in turn in one child process:
    each exits 0 and prints its record, the same as its ``--out`` file,
    headed by its metric, on this card, with every one of its own checks
    held; its kernel launches join the table;
-18. prints the kernel table as JSON (each kernel's launches summed over
+19. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -266,7 +283,12 @@ from tpu_se_torch.models import init_params, params_from_numpy  # noqa: E402
 from tpu_se_torch.models.ffn import (  # noqa: E402
     DEFAULT_LAYERSIZES, reduced_linear, reduced_product,
 )
-from tpu_se_torch.ops import _build, ggd_kernel, lps_kernel  # noqa: E402
+from tpu_se_torch.ops import (  # noqa: E402
+    _build, ggd_kernel, lps_kernel, sgd_kernel,
+)
+from tpu_se_torch.ops.sgd_kernel import (  # noqa: E402
+    sgd_update_cuda, sgd_update_plain,
+)
 from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
@@ -294,6 +316,14 @@ LPS_ATOL = 1e-5
 # powf against torch.pow (the CPU check of plain against JAX saw 6.4e-7).
 GGD_RTOL = 5e-6
 GGD_BETAS = (0.5, 0.9, 1.0, 2.0)
+# The optimizer kernel phase: bunch sizes n (the natural scale, two whose
+# g / n rounds, the parity scale), weight costs, offsets in floats of views
+# into one flat buffer, and the recipe's rate and momentum.
+SGD_NS = (1, 3, 100, 128)
+SGD_WCS = (0.0, 1e-5)
+SGD_OFFSETS = (1, 2, 3)
+SGD_LR = 0.1
+SGD_MOMENTUM = 0.9
 # The data-parallel phase: the split kernels' rows (a rank's share of a
 # bunch at 2 ranks and at 1, and two larger bunches) and shape factors, and
 # the seconds a cluster of child ranks may take before it is killed.
@@ -669,6 +699,185 @@ def ggd_phase(dev) -> dict:
     return {"max_rel_err": worst, "max_abs_err": max_abs, "times": times}
 
 
+def sgd_lists(base: list, dev, offset: int | None = None) -> list:
+    """``base``'s numpy (params, velocity, grads) as tensors on the card;
+    with ``offset``, each list's tensors are views into one flat buffer
+    that start ``offset`` floats in, as ``Mesh.all_reduce_sum_flat``
+    returns them."""
+    if offset is None:
+        return [[{k: torch.from_numpy(a).to(dev) for k, a in layer.items()}
+                 for layer in x] for x in base]
+    out = []
+    for x in base:
+        flat = torch.empty(offset + sum(a.size for layer in x
+                                        for a in layer.values()),
+                           device=dev)
+        lo, views = offset, []
+        for layer in x:
+            views.append({})
+            for k, a in layer.items():
+                views[-1][k] = flat[lo:lo + a.size].view(a.shape)
+                views[-1][k].copy_(torch.from_numpy(a))
+                lo += a.size
+        out.append(views)
+    return out
+
+
+def sgd_base(rng, layersizes) -> list:
+    """Seeded numpy (params, velocity, grads) ``[{"w", "b"}]``; the last
+    bias has -0.0 gradients and velocities and an inf weight, where a
+    decay of 0 * p would change bits."""
+    base = [[{"w": rng.standard_normal((a, b)).astype(np.float32),
+              "b": rng.standard_normal(b).astype(np.float32)}
+             for a, b in zip(layersizes[:-1], layersizes[1:])]
+            for _ in range(3)]
+    base[1][-1]["b"][:8] = -0.0
+    base[2][-1]["b"][:8] = -0.0
+    base[0][-1]["b"][8] = np.inf
+    return base
+
+
+def sgd_diff(got: list, want: list) -> tuple[bool, float]:
+    """(bitwise equal, max |got - want| where they differ) over params and
+    velocity."""
+    same, worst = True, 0.0
+    for x, y in zip(got[:2], want[:2]):
+        for lx, ly in zip(x, y):
+            for k in ("w", "b"):
+                a, b = lx[k], ly[k]
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    same = False
+                    worst = max(worst, float(torch.where(
+                        a == b, 0.0, (a - b).abs()).nan_to_num(
+                            nan=float("inf")).max()))
+    return same, worst
+
+
+def sgd_bound_ms(lists: list) -> float:
+    """The least the card could take for an update of ``lists``: p, v and
+    g read once and p and v written once, at the memory rate (five float
+    operations per element are far below it)."""
+    n = sum(t.numel() for layer in lists[0] for t in layer.values())
+    return 20 * n / HBM_BYTES_PER_S * 1e3
+
+
+def sgd_phase(dev) -> dict:
+    """The optimizer kernel against the plain update on the card, bit for
+    bit: the division premise; full width at every n of ``SGD_NS``, weight
+    cost and form of the rate; views at unaligned offsets; a captured graph
+    at two rates; a list longer than one table.  Device time by CUDA-graph
+    replay beside the byte bound, the plain ops' and an empty launch's.
+    Launches made here are not the main path's: the count is restored."""
+    counted = sgd_kernel.launches
+    rng = np.random.default_rng(SEED)
+    g = torch.from_numpy(rng.standard_normal(1 << 20).astype(
+        np.float32)).to(dev)
+    for n in SGD_NS[1:3]:
+        inv = float(np.float32(1) / np.float32(n))
+        if not torch.equal((g / n).view(torch.int32),
+                           (g * inv).view(torch.int32)):
+            raise SystemExit(f"on this card g / {n} is not g * float32(1/{n})"
+                             ": the kernel's division premise fails")
+    print(f"sgd     g / n on the card equals g * float32(1/n) bitwise at n "
+          f"in {SGD_NS[1:3]} (PyTorch's division by a host scalar)")
+    base = sgd_base(rng, DEFAULT_LAYERSIZES)
+    worst = 0.0
+
+    def check(label: str, got: list, want: list) -> None:
+        nonlocal worst
+        torch.cuda.synchronize()
+        same, diff = sgd_diff(got, want)
+        if not same:
+            raise SystemExit(f"sgd_update_cuda differs from the plain update "
+                             f"({label}): max |diff| {diff:.3e}")
+        worst = max(worst, diff)
+
+    cases = 0
+    for n in SGD_NS:
+        for wc in SGD_WCS:
+            for tensor_lr in (False, True):
+                got, want = sgd_lists(base, dev), sgd_lists(base, dev)
+                lr = (torch.tensor(SGD_LR, dtype=torch.float32, device=dev)
+                      if tensor_lr else SGD_LR)
+                before = sgd_kernel.launches
+                sgd_update_cuda(*got, lr, SGD_MOMENTUM, wc, n)
+                sgd_update_plain(*want, lr, SGD_MOMENTUM, wc, n)
+                if sgd_kernel.launches - before != 1:
+                    raise SystemExit("sgd_update_cuda: not one launch")
+                check(f"n={n} wc={wc} tensor lr={tensor_lr}", got, want)
+                cases += 1
+    narrow = sgd_base(rng, (1799, 63, 257))
+    for offset in SGD_OFFSETS:
+        got, want = sgd_lists(narrow, dev, offset), sgd_lists(narrow, dev)
+        sgd_update_cuda(*got, SGD_LR, SGD_MOMENTUM, 1e-5, BUNCH)
+        sgd_update_plain(*want, SGD_LR, SGD_MOMENTUM, 1e-5, BUNCH)
+        check(f"views {offset} floats into one buffer", got, want)
+    got, want = sgd_lists(base, dev), sgd_lists(base, dev)
+    rate = torch.full((), SGD_LR, dtype=torch.float32, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sgd_update_cuda(*got, rate, SGD_MOMENTUM, 1e-5, BUNCH)
+    for lr in (SGD_LR, 0.05, 0.05):
+        rate.fill_(lr)
+        graph.replay()
+        sgd_update_plain(*want, lr, SGD_MOMENTUM, 1e-5, BUNCH)
+    check("a captured graph replayed at two rates", got, want)
+    del graph
+    long_sizes = tuple(range(3, 4 + sgd_kernel.MAX_TENSORS))
+    many = sgd_base(rng, long_sizes)
+    got, want = sgd_lists(many, dev), sgd_lists(many, dev)
+    before = sgd_kernel.launches
+    sgd_update_cuda(*got, SGD_LR, SGD_MOMENTUM, 1e-5, 1)
+    sgd_update_plain(*want, SGD_LR, SGD_MOMENTUM, 1e-5, 1)
+    tables = sgd_kernel.launches - before
+    check(f"{2 * (len(long_sizes) - 1)} tensors", got, want)
+    if tables != 2:
+        raise SystemExit(f"sgd_update_cuda: {tables} launches for "
+                         f"{2 * (len(long_sizes) - 1)} tensors")
+    n_params = sum(a.size for layer in base[0] for a in layer.values())
+    print(f"sgd     sgd_update_cuda bitwise equal to sgd_update_plain on the "
+          f"card: full width ({n_params:,} parameters) at n in {SGD_NS}, "
+          f"weight cost in {SGD_WCS}, lr as a float and as a 0-dim tensor ({cases} "
+          f"cases, -0.0 steps and an inf weight included); views "
+          f"{SGD_OFFSETS} floats into one buffer at (1799, 63, 257); a "
+          f"captured graph replayed at lr {SGD_LR} and 0.05; "
+          f"{2 * (len(long_sizes) - 1)} tensors in {tables} launches")
+
+    lists = sgd_lists(base, dev)
+    lib, _ = load_library()
+    largest = max(t.numel() for layer in lists[0] for t in layer.values())
+    blocks = lib.sgd_grid_blocks(largest)
+
+    def kernel():
+        sgd_update_cuda(*lists, SGD_LR, SGD_MOMENTUM, 1e-5, BUNCH)
+
+    def plain():
+        sgd_update_plain(*lists, SGD_LR, SGD_MOMENTUM, 1e-5, BUNCH)
+
+    def empty():
+        lib.sgd_launch_floor(largest, torch.cuda.current_stream().cuda_stream)
+
+    cuda_ms, plain_ms = time_ms(kernel), time_ms(plain)
+    dev_ms, dev_plain_ms = device_us(kernel) / 1e3, device_us(plain) / 1e3
+    floor_us = device_us(empty)
+    bound_ms = sgd_bound_ms(lists)
+    print(f"sgd     full width, n={BUNCH}: sgd_update_cuda "
+          f"{cuda_ms * 1e3:.1f} us/call, sgd_update_plain "
+          f"{plain_ms * 1e3:.1f} us/call (events)")
+    print(f"sgd     full width, n={BUNCH}: device time sgd_update_cuda "
+          f"{dev_ms * 1e3:.2f} us ({blocks} blocks of 256 threads), "
+          f"sgd_update_plain {dev_plain_ms * 1e3:.2f} us, an empty kernel "
+          f"launched the same way {floor_us:.2f} us; bound "
+          f"{bound_ms * 1e3:.2f} us (bytes: 20 per parameter at 3.35 TB/s), "
+          f"{bound_ms / dev_ms:.1%} of it reached, "
+          f"{HBM_BYTES_PER_S * bound_ms / dev_ms / 1e12:.3f} TB/s; "
+          f"{card_line()}")
+    sgd_kernel.launches = counted
+    return {"max_abs_err": worst,
+            "times": {"ms": dev_ms, "plain_ms": dev_plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}}
+
+
 def run_train(tfx: dict, init_wts: str, out_dir: str, device: str,
               *extra) -> list:
     """Train through the CLI; check its files; -> metrics.jsonl records."""
@@ -706,8 +915,9 @@ def ml_bunches(tfx: dict) -> int:
 
 
 def zero_train_counts() -> None:
-    """GGD kernel launches, replayed bunches and captured graphs to 0."""
-    ggd_kernel.launches = 0
+    """GGD and optimizer kernel launches, replayed bunches and captured
+    graphs to 0."""
+    ggd_kernel.launches = sgd_kernel.launches = 0
     step_mod.bunches_replayed = step_mod.graphs_captured = 0
 
 
@@ -719,7 +929,20 @@ def replay_check(label: str, bunches: int) -> str:
     if not (captured >= 1 and replayed == bunches - captured):
         raise SystemExit(f"{label}: {replayed} bunches replayed after "
                          f"{captured} captures for {bunches} bunches")
+    update_check(label)
     return f"{replayed} replayed + {captured} warm-up bunches"
+
+
+def update_check(label: str) -> int:
+    """Require one optimizer kernel launch per GGD kernel launch since
+    ``zero_train_counts``: every bunch trained on one card here is an ML
+    bunch, with one of each (replays included).  So where a phase returns
+    its GGD launches, they are its updates too. -> the launches."""
+    if sgd_kernel.launches != ggd_kernel.launches:
+        raise SystemExit(f"{label}: {sgd_kernel.launches} optimizer kernel "
+                         f"launches against {ggd_kernel.launches} GGD "
+                         "launches")
+    return sgd_kernel.launches
 
 
 def train_phase(dev, root: str) -> dict:
@@ -810,8 +1033,11 @@ def train_graph_phase(dev) -> dict:
     velocity and alpha bit for bit, launches and replays counted; ms per
     bunch by the host clock (ending in a synchronise), then both again in
     turns; device busy us and launches per bunch (``torch.profiler``); the
-    first call's ms, one eager warm-up bunch plus the capture.
-    -> GGD launches."""
+    first call's ms, one eager warm-up bunch plus the capture; then the
+    replayed chunk from a fresh state against the same chunk with the plain
+    update (``train.step.sgd_momentum_update`` replaced by
+    ``sgd_update_plain``), bit for bit.  -> GGD launches (= optimizer
+    kernel launches)."""
     t0 = time.perf_counter()
     card = card_line()
     rng = np.random.default_rng(SEED)
@@ -870,7 +1096,29 @@ def train_graph_phase(dev) -> dict:
             again.append(chunk(True, starts[:1]))
         grown = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
         eager_one = [chunk(False, starts[:1]) for _ in range(3)]
-        launches += ggd_kernel.launches
+        launches += update_check(f"train graph {label}")
+        # The fused update against the eager ops it replaces, over a chunk.
+        zero_train_counts()
+        fused = make_train_state(params_from_numpy(layers, dev))
+        train_chunk(fused, noisy, clean, starts, GRAPH_LRATE, hyper)
+        kernel_calls = sgd_kernel.launches
+        plain = make_train_state(params_from_numpy(layers, dev))
+        update = step_mod.sgd_momentum_update
+        step_mod.sgd_momentum_update = sgd_update_plain
+        try:
+            train_chunk(plain, noisy, clean, starts, GRAPH_LRATE, hyper)
+        finally:
+            step_mod.sgd_momentum_update = update
+        torch.cuda.synchronize()
+        pairs = list(zip(state_tensors(fused), state_tensors(plain)))
+        if not (kernel_calls == sgd_kernel.launches == n
+                and all(torch.equal(a, b) for a, b in pairs)):
+            worst = max(float((a - b).abs().max()) for a, b in pairs)
+            raise SystemExit(f"train graph {label}: the chunk with the "
+                             f"optimizer kernel ({kernel_calls} launches "
+                             f"for {n} bunches) differs from the plain "
+                             f"update's by {worst:.3e}")
+        launches += n
 
         def times(graph: bool) -> str:
             return ", ".join(f"{t:.4f}" for t in ms[graph])
@@ -888,7 +1136,9 @@ def train_graph_phase(dev) -> dict:
               f"bunch (torch.profiler, {GRAPH_PROFILED} bunches) replayed "
               f"{profiles[True][0]:.1f} us over {profiles[True][1]:.0f} "
               f"launches, eager {profiles[False][0]:.1f} us over "
-              f"{profiles[False][1]:.0f}; {card}")
+              f"{profiles[False][1]:.0f}; a fresh replayed chunk with the "
+              f"optimizer kernel ({n} launches) bitwise equal to one with "
+              f"the plain update; {card}")
     print(f"tgraph  train graph phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
     return launches
@@ -2123,7 +2373,8 @@ def coordinator_flags(port: int, n_ranks: int, rank: int, gloo: bool) -> list:
 
 MESH_LINE = re.compile(
     r"data mesh: rank (\d+) of (\d+) \((\w+)\): ggd_colsum (\d+) launches, "
-    r"ggd_grad_from_sums (\d+) launches, data axis all_reduce (\d+) calls "
+    r"ggd_grad_from_sums (\d+) launches, sgd_momentum_update (\d+) "
+    r"launches, data axis all_reduce (\d+) calls "
     r"(\d+) bytes all_gather (\d+) calls (\d+) bytes; model axis all_reduce "
     r"(\d+) calls (\d+) bytes all_gather (\d+) calls (\d+) bytes, replicas "
     r"equal at (\d+) epoch ends")
@@ -2131,12 +2382,12 @@ MESH_LINE = re.compile(
 
 def mesh_summary(output: str, label: str) -> dict:
     """The numbers of a rank's closing ``data mesh:`` line: its split GGD
-    launches and what its collectives moved over each axis (``calls`` and
-    ``bytes`` are the data axis' all-reduces)."""
+    and optimizer kernel launches and what its collectives moved over each
+    axis (``calls`` and ``bytes`` are the data axis' all-reduces)."""
     found = MESH_LINE.search(output)
     if not found:
         raise SystemExit(f"{label}: no closing 'data mesh:' line in\n{output}")
-    keys = ("rank", "ranks", "backend", "colsum", "from_sums", "calls",
+    keys = ("rank", "ranks", "backend", "colsum", "from_sums", "sgd", "calls",
             "bytes", "data_gathers", "data_gather_bytes", "model_calls",
             "model_bytes", "model_gathers", "model_gather_bytes",
             "replica_checks")
@@ -2214,13 +2465,13 @@ def dp_train_runs(root: str, train: dict) -> dict:
           f"byte-identical to the single-process run = {identical}")
     want_bytes = bunches * 4 * (257 + n_params)
     if not (got["backend"] == "nccl" and got["ranks"] == 1
-            and got["colsum"] == got["from_sums"] == bunches
+            and got["colsum"] == got["from_sums"] == got["sgd"] == bunches
             and got["calls"] == 2 * bunches and got["bytes"] == want_bytes
             and got["replica_checks"] == EPOCHS and identical):
         raise SystemExit(f"1 rank over NCCL: {got}, wanted {bunches} "
                          f"launches of each, {2 * bunches} collectives of "
                          f"{want_bytes} bytes and the single-process bytes")
-    launches = {"colsum": got["colsum"], "from_sums": got["from_sums"]}
+    launches = {k: got[k] for k in ("colsum", "from_sums", "sgd")}
 
     # 2 ranks sharing the card over gloo, lrate 0.001, twice.
     for name, ranks in gloo.items():
@@ -2229,12 +2480,12 @@ def dp_train_runs(root: str, train: dict) -> dict:
             got = mesh_summary(text, f"{name} rank {k}")
             if not (got["backend"] == "gloo" and got["ranks"] == 2
                     and got["rank"] == k
-                    and got["colsum"] == got["from_sums"] == bunches
-                    and got["calls"] == 2 * bunches
+                    and got["colsum"] == got["from_sums"] == got["sgd"]
+                    == bunches and got["calls"] == 2 * bunches
                     and got["replica_checks"] == EPOCHS):
                 raise SystemExit(f"{name} rank {k}: {got}")
-            launches["colsum"] += got["colsum"]
-            launches["from_sums"] += got["from_sums"]
+            for key in launches:
+                launches[key] += got[key]
         files = sorted(os.listdir(os.path.join(root, name)))
         if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
                      "mlp.2.wts"]:
@@ -2373,7 +2624,7 @@ def tp_train_runs(root: str, train: dict) -> dict:
                 AGREE_LRATE, "--mesh-model", str(TP_MODEL),
                 *coordinator_flags(port, n, k, True)),
                 os.path.join(root, f"{name}.{k}.log")) for k in range(n)])
-    launches = {"colsum": 0, "from_sums": 0}
+    launches = {"colsum": 0, "from_sums": 0, "sgd": 0}
     w0 = read_wts(init_wts)
     w_one = read_wts(os.path.join(root, "cuda_lr", "mlp.2.wts"))
     for name, (data, ranks) in runs.items():
@@ -2386,7 +2637,7 @@ def tp_train_runs(root: str, train: dict) -> dict:
             # each CV batch runs the sharded forward (1 sum, 1 gather), and
             # at each epoch's end the ranks of data index 0 gather every
             # split tensor for rank 0 to write.
-            want = {"colsum": bunches, "from_sums": bunches,
+            want = {"colsum": bunches, "from_sums": bunches, "sgd": bunches,
                     "calls": 2 * bunches if data > 1 else 0,
                     "bytes": bunches * 4 * (257 + floats) if data > 1 else 0,
                     "model_calls": 2 * bunches + cv,
@@ -2398,8 +2649,8 @@ def tp_train_runs(root: str, train: dict) -> dict:
                      if got[key] != v}
             if wrong:
                 raise SystemExit(f"{name} rank {k}: (got, wanted) {wrong}")
-            launches["colsum"] += got["colsum"]
-            launches["from_sums"] += got["from_sums"]
+            for key in launches:
+                launches[key] += got[key]
             if k == 0:
                 print(f"tp      {name}: per bunch and rank, data axis "
                       f"{got['calls'] / bunches:.0f} all-reduces "
@@ -2834,12 +3085,14 @@ def overlap_runs(root: str, train: dict) -> dict:
 
 
 def overlap_phase(dev, root: str, train: dict) -> dict:
-    """-> the GGD kernels' launches on the overlapped paths."""
+    """-> the GGD kernels' launches on the overlapped paths, and the
+    optimizer kernel's at ``mesh=None`` (one per fused GGD launch there)."""
     t0 = time.perf_counter()
     os.makedirs(root)
     fused = overlap_unsharded(dev, train["tfx"], train["init_wts"])
     launches = overlap_runs(root, train)
     launches["fused"] += fused
+    launches["sgd"] = fused
     print(f"overlap overlapped-step phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
     return launches
@@ -2939,13 +3192,17 @@ BENCH_RUNS = (
     ("scaling", ["--meshes", "1", "--batch-per-device", "128", "--reps",
                  "1"]),
 )
-# The child: each run's ``main``, then a line "bench-run <i> <rc> <s>".
+# The child: each run's ``main``, then a line "bench-run <i> <rc> <s>";
+# last the optimizer kernel's launches over all runs (no bench compares it
+# with the plain update): "bench-sgd <launches>".
 BENCH_CHILD = """
 import importlib, json, sys, time
+from tpu_se_torch.ops import sgd_kernel
 for i, (name, argv) in enumerate(json.loads(sys.argv[1])):
     t = time.perf_counter()
     rc = importlib.import_module("tpu_se_torch.bench." + name).main(argv)
     print(f"bench-run {i} {rc} {time.perf_counter() - t:.1f}", flush=True)
+print(f"bench-sgd {sgd_kernel.launches}", flush=True)
 """
 BENCH_KEYS = {
     "train": ("train_frames_per_sec_per_chip",
@@ -3000,6 +3257,12 @@ def benches_phase(root: str) -> dict:
         print(f"bench   {name} {' '.join(argv)}: {metric} {rec['value']} "
               f"{rec['unit']}; {shown}; checks {sorted(rec['checks'])} "
               f"held; {done[i][1]} s")
+    sgd = [int(line.split()[1]) for line in lines
+           if line.startswith("bench-sgd ")]
+    if len(sgd) != 1 or sgd[0] < launches["ggd"]:
+        raise SystemExit(f"benches: optimizer kernel launches {sgd} against "
+                         f"{launches['ggd']} fused GGD launches")
+    launches["sgd"] = sgd[0]
     print(f"bench   benches phase wall time: {time.perf_counter() - t0:.2f} "
           f"s; launches {launches}")
     return launches
@@ -3032,6 +3295,7 @@ def main() -> int:
         launches = slice_phase(root, fx)
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
+        sgd = sgd_phase(dev)
         train = train_phase(dev, root)
         graph_launches = train_graph_child(root)
         native_phase(dev, os.path.join(root, "native"), train)
@@ -3056,8 +3320,14 @@ def main() -> int:
     # shapes: the batched decode's rows, the parity bunch.  The split entry
     # points' launches are the child ranks' own counts (one rank over NCCL,
     # two ranks over gloo twice), their times those of a bunch's 128 rows
-    # on one rank.  No
-    # kernel's function is one PyTorch call, so there is no library time.
+    # on one rank.  The optimizer kernel's launches are one per trained
+    # bunch on every path that trains on the card: the one-device runs
+    # (each phase's GGD launches, held equal to its updates by
+    # ``update_check``), the ranks' own counts (data- and tensor-parallel
+    # phases) and the benches' child; its time is the full-width update's.
+    # No kernel's function is one PyTorch call (``torch.optim.SGD(fused=
+    # True)`` keeps lr outside the velocity and adds the decay before the
+    # momentum: another formula), so there is no library time.
     print(json.dumps({"kernels": [{
         "name": "lps_forward", "route": "cuda",
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
@@ -3089,7 +3359,16 @@ def main() -> int:
         "launches": (dp["launches"]["from_sums"] + over["from_sums"]
                      + tp["from_sums"] + benches["from_sums"]),
         "max_abs_err": dp["max_abs_err"]["from_sums"],
-        **dp["times"][BUNCH]["from_sums"], "library_ms": None}]}))
+        **dp["times"][BUNCH]["from_sums"], "library_ms": None}, {
+        "name": "sgd_momentum_update", "route": "cuda",
+        "source": "tpu_se_torch/csrc/sgd_kernel.cu",
+        "replaces": "tpu_se/train/optim.py:23",
+        "launches": (train["launches"] + graph_launches
+                     + pipe["ggd_launches"] + bf16["ggd_launches"]
+                     + over["sgd"] + examples["ggd"] + benches["sgd"]
+                     + dp["launches"]["sgd"] + tp["sgd"]),
+        "max_abs_err": sgd["max_abs_err"], **sgd["times"],
+        "library_ms": None}]}))
     print(f"card    {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -203,4 +203,12 @@ def load_library() -> tuple[ctypes.CDLL, str]:
     lib.lps_forward.restype = i32
     lib.lps_grid_blocks.argtypes = [i32, i32]
     lib.lps_grid_blocks.restype = ctypes.c_longlong
+    # csrc/sgd_kernel.cu: the entries are a ctypes array of
+    # ops/sgd_kernel.py:_Entry, passed as a pointer.
+    lib.sgd_momentum_update.argtypes = [ptr, i32, ptr, f32, f32, f32, ptr]
+    lib.sgd_momentum_update.restype = i32
+    lib.sgd_launch_floor.argtypes = [ctypes.c_longlong, ptr]
+    lib.sgd_launch_floor.restype = i32
+    lib.sgd_grid_blocks.argtypes = [ctypes.c_longlong]
+    lib.sgd_grid_blocks.restype = i32
     return lib, log

@@ -46,7 +46,7 @@ from tpu_se_torch.losses import ref_gamma
 from tpu_se_torch.models import (
     DEFAULT_LAYERSIZES, init_params, init_params_uniform,
 )
-from tpu_se_torch.ops import ggd_kernel
+from tpu_se_torch.ops import ggd_kernel, sgd_kernel
 from tpu_se_torch.parallel import (
     Mesh, MeshConfig, initialize_distributed, launch_local_ranks, make_mesh,
     shard_train_args, shutdown_distributed, sync_processes,
@@ -511,7 +511,8 @@ def _run_schedule(cfg: TrainConfig, device: torch.device, mesh: Mesh | None,
         log(f"data mesh: rank {mesh.rank} of {mesh.size} ({mesh.backend}): "
             f"ggd_colsum {ggd_kernel.colsum_launches} launches, "
             f"ggd_grad_from_sums {ggd_kernel.grad_from_sums_launches} "
-            f"launches, {traffic_text(mesh)}, replicas equal at "
+            f"launches, sgd_momentum_update {sgd_kernel.launches} launches, "
+            f"{traffic_text(mesh)}, replicas equal at "
             f"{replica_checks} epoch ends")
     return last_path
 

@@ -4,11 +4,12 @@ Port of ``tpu_se/train/step.py`` (reference per-bunch loop
 ``BP_GPU.cu:152-185,308-440``).  Where JAX runs the bunches of a chunk
 inside one ``lax.scan``, the port runs them as a Python loop.  On one card
 (``mesh=None``, no dropout) the loop replays one captured CUDA graph per
-bunch; elsewhere, and with ``graph=False``, each bunch is its ~80 eager
+bunch; elsewhere, and with ``graph=False``, each bunch is its eager
 launches:
 
 - The graph holds a whole bunch: the splice gather, the forward pass, the
-  GGD kernel, the backward pass and the update.  It reads the bunch's
+  GGD kernel, the backward pass and the update (one optimizer kernel,
+  ``train/optim.py``).  It reads the bunch's
   window starts from a static ``[M]`` buffer, filled by one device copy
   per bunch, and the rate from a 0-dim float32 buffer, so one graph serves
   every epoch's rate; it writes the weights and velocity in place.  The
@@ -68,7 +69,7 @@ import torch
 
 from tpu_se_torch.losses import output_grad_and_alpha
 from tpu_se_torch.models import FFN
-from tpu_se_torch.ops import ggd_kernel
+from tpu_se_torch.ops import ggd_kernel, sgd_kernel
 from tpu_se_torch.parallel.tensor import TensorParallelFFN
 from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
 from tpu_se_torch.utils.device import resolve_compute_dtype
@@ -111,9 +112,9 @@ class TrainHyper:
 
 # Bunches run as replays of a captured graph, and graphs captured (each
 # after one eager warm-up bunch), over every state of the process.  A
-# replay launches the GGD kernel as the eager bunch does, so
-# ``ggd_kernel.launches`` gains one per replay of a graph that holds one
-# launch; the capture, which launches nothing, is not counted.
+# replay launches the GGD and optimizer kernels as the eager bunch does,
+# so ``ggd_kernel.launches`` and ``sgd_kernel.launches`` gain what one
+# replay holds; the capture, which launches nothing, is not counted.
 bunches_replayed = 0
 graphs_captured = 0
 
@@ -129,6 +130,7 @@ class _BunchGraph:
     lr: torch.Tensor            # 0-dim float32 rate the graph's update takes
     alpha: torch.Tensor         # the graph's alpha [D], in its memory pool
     ggd_launches: int           # GGD kernel launches in one replay
+    sgd_launches: int           # optimizer kernel launches in one replay
 
 
 @dataclass
@@ -284,6 +286,7 @@ def _replay_chunk(state: TrainState, noisy: torch.Tensor,
                 g.graph.replay()
             bunches_replayed += rest.shape[0]
             ggd_kernel.launches += g.ggd_launches * rest.shape[0]
+            sgd_kernel.launches += g.sgd_launches * rest.shape[0]
             alpha = g.alpha
         return alpha.clone()
 
@@ -314,19 +317,20 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key: tuple,
     # Read by the caller on the current stream, freed after it.
     alpha.record_stream(current)
     graph = torch.cuda.CUDAGraph()
-    launches = ggd_kernel.launches
+    launches = (ggd_kernel.launches, sgd_kernel.launches)
     with torch.cuda.stream(side):
         graph.capture_begin(pool=None if old is None else old.graph.pool())
         try:
             static_alpha = bunch_step(starts, rate)
         finally:
             graph.capture_end()
-    held_launches = ggd_kernel.launches - launches
-    ggd_kernel.launches = launches
+    held_launches = (ggd_kernel.launches - launches[0],
+                     sgd_kernel.launches - launches[1])
+    ggd_kernel.launches, sgd_kernel.launches = launches
     current.wait_stream(side)
     graphs_captured += 1
     return _BunchGraph(key, held, graph, side, starts, rate, static_alpha,
-                       held_launches), alpha
+                       *held_launches), alpha
 
 
 @torch.no_grad()
