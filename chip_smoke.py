@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``tpu_se_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``tpu_se_torch``) on one GPU or more.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, ``nvcc`` and the repository checkout; it imports
-nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
+Needs one CUDA card (its cross-card phase runs on two or four), ``nvcc``
+and the repository checkout; it imports nothing of JAX.  In order, and
+failing (non-zero exit) at the first fault:
 
 1. reports torch/CUDA versions and the card's name and power limit;
 2. requires ``torch.cuda.is_available()``;
@@ -190,7 +191,30 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    LSB (bitwise by form reported), enhanced LPS within rtol 1e-5, atol
    1e-5, each rank's LPS launches equal to the one process's and 16 graph
    replays;
-15. host chunk loader phase (run after the training phase, at its
+15. cross-card phase: the mesh paths over NCCL, one rank per card, as far
+   as the machine's cards go (one line names each run left out and the
+   cards it needs; nothing runs in its place); each card's name and power
+   limit; the children of every other phase see card 0 alone, as on a
+   one-card machine.  With two cards or more: ``train --mesh-data 1
+   --mesh-model 2`` at ``--lrate 0.001`` twice in float32 and once in
+   bfloat16; with four, ``--mesh-data 2 --mesh-model 2`` and
+   ``--mesh-data 1 --mesh-model 4``, each twice; clusters on disjoint
+   cards run together.  Each rank's closing ``data mesh:`` line holds the
+   layout's collectives per axis (calls and bytes: the model axis' two
+   all-reduces and one all-gather per bunch, per CV batch one of each, the
+   checkpoint's gathers; the data axis' two all-reduces per bunch at data
+   2) and replicas equal at every epoch end; only rank 0's files; weight
+   changes and CV metrics within the float32 bars (1e-3, 1e-4) or the
+   bfloat16 ones (5e-2, 1e-3) of the one-process card run of the same
+   products; each float32 shape's rerun byte-identical.  ms per global
+   bunch through ``bench/dp_epoch`` as it is, one cluster at a time: one
+   process, 2x1 and 1x2 (two cards), 4x1, 2x2 and 1x4 (four), with each
+   axis' collectives per bunch.  ``bench/mesh_decode`` at 2 and 4 data
+   ranks against the one-process card decode at the decoder-mesh phase's
+   bars, the int16 streams bitwise; frames/s of ``enhance_batch_waves``
+   over 16 utterances in one process and at each rank count (host clock);
+   the launches of these runs join the kernel table;
+16. host chunk loader phase (run after the training phase, at its
    fixtures): compiles ``tpu_se_torch/csrc/chunk_loader.cc`` with the host
    compiler (timed) and loads the library; reads, byte-swaps and
    normalises the training span (noisy + clean) through the library and
@@ -199,7 +223,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    rows by each route, whose ``mlp.2.wts`` must be byte-identical (and is
    compared with the resident run's); epoch samples/s per chunk by both
    routes beside the resident epoch's;
-16. overlapped-step phase (after the data-parallel phase):
+17. overlapped-step phase (after the data-parallel phase):
    ``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
    card, one epoch each from the same weights (bitwise, or the smoke
    fails; one fused GGD launch per bunch); then, through
@@ -216,7 +240,7 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    per hidden layer overlapped, none flat), the us by which NCCL kernels
    overlap GEMM kernels on the device, and where the host's time goes
    (the host ops of most self time per bunch);
-17. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
+18. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
    the slice phase's longest utterance with its model (graph replays = hops
    and two eager LPS calls per enhancer; the single stream as long as the
    batch decode), and ``tpu_se_torch.examples.demo_pipeline`` at full
@@ -224,14 +248,14 @@ nothing of JAX.  In order, and failing (non-zero exit) at the first fault:
    corpus (``bench/fixtures.py:write_demo_corpus``): finite SegSNR, LSD
    and STOI for the held-out condition, one LPS launch per wav and one GGD
    launch per ML bunch, its 40 ``.wts`` deleted after;
-18. benches phase: each measurement module (``tpu_se_torch/bench/``
+19. benches phase: each measurement module (``tpu_se_torch/bench/``
    ``train`` in float32 and bfloat16, ``decode``, ``stream``, ``loader``,
    ``build``, ``scaling`` at one rank) once at short settings
    (``BENCH_RUNS``), each module's ``main`` in turn in one child process:
    each exits 0 and prints its record, the same as its ``--out`` file,
    headed by its metric, on this card, with every one of its own checks
    held; its kernel launches join the table;
-19. prints the kernel table as JSON (each kernel's launches summed over
+20. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -293,7 +317,10 @@ from tpu_se_torch.ops._build import (  # noqa: E402
     load_library, sass_opcode_counts,
 )
 from tpu_se_torch.bench.mesh_decode import decode_all  # noqa: E402
-from tpu_se_torch.parallel import MeshConfig, param_shardings  # noqa: E402
+from tpu_se_torch.parallel import (  # noqa: E402
+    MeshConfig, initialize_distributed, make_mesh, param_shardings,
+    shutdown_distributed, sync_processes,
+)
 from tpu_se_torch.parallel.mesh import free_port  # noqa: E402
 from tpu_se_torch.parallel.overlap_step import (  # noqa: E402
     train_chunk_overlap,
@@ -2314,11 +2341,27 @@ def split_kernel_phase(dev) -> dict:
     return {"max_abs_err": max_abs, "times": times}
 
 
-def start_rank(argv: list, log_path: str) -> dict:
-    """Start ``python <argv>`` from the checkout, its output in a file."""
+def visible_cards() -> list[str]:
+    """This process's cards as ``CUDA_VISIBLE_DEVICES`` names them (their
+    indices when it is not set), in this process's order."""
+    named = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if named is None:
+        return [str(k) for k in range(torch.cuda.device_count())]
+    return [c.strip() for c in named.split(",")
+            if c.strip()][:torch.cuda.device_count()]
+
+
+def start_rank(argv: list, log_path: str, cards: tuple = (0,)) -> dict:
+    """Start ``python <argv>`` from the checkout, its output in a file,
+    seeing only ``cards`` (indices into this process's cards, in that
+    order): card 0 alone, as on a one-card machine, unless a phase spreads
+    its ranks over cards."""
+    names = visible_cards()
+    env = dict(os.environ,
+               CUDA_VISIBLE_DEVICES=",".join(names[k] for k in cards))
     log = open(log_path, "w")
     proc = subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=log,
-                            stderr=subprocess.STDOUT)
+                            stderr=subprocess.STDOUT, env=env)
     return {"proc": proc, "log": log, "path": log_path, "argv": argv}
 
 
@@ -2486,11 +2529,7 @@ def dp_train_runs(root: str, train: dict) -> dict:
                 raise SystemExit(f"{name} rank {k}: {got}")
             for key in launches:
                 launches[key] += got[key]
-        files = sorted(os.listdir(os.path.join(root, name)))
-        if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
-                     "mlp.2.wts"]:
-            raise SystemExit(f"{name}: files on disk {files}: not rank 0's "
-                             "alone")
+        rank0_files(os.path.join(root, name), name)
     again = same_bytes(os.path.join(root, "gloo2", "mlp.2.wts"),
                        os.path.join(root, "gloo2_again", "mlp.2.wts"))
     w0 = read_wts(init_wts)
@@ -2586,23 +2625,102 @@ def dp_phase(dev, root: str, train: dict) -> dict:
 
 def cv_batches(tfx: dict) -> int:
     """CV batches one epoch's CV takes (each runs the sharded forward)."""
+    return sum(-(-n // CV_BATCH) for n in cv_windows(tfx))
+
+
+def cv_windows(tfx: dict) -> list[int]:
+    """Windows of each chunk of one epoch's CV (every rank runs them all)."""
     lo, hi = (int(x) for x in tfx["cv_sents"].split("-"))
     ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"], (lo, hi),
                           tfx["traincache"])
-    return sum(-(-len(ds.chunk_starts(ci)) // CV_BATCH)
-               for ci in range(ds.n_chunks))
+    return [len(ds.chunk_starts(ci)) for ci in range(ds.n_chunks)]
 
 
-def shard_floats(init_wts: str, model: int) -> tuple[int, int]:
+def shard_floats(init_wts: str, model: int) -> tuple[int, int, int]:
     """-> (floats of one rank's parameters on a model axis of ``model``
     ranks: its gradients, all-reduced over the data axis in one buffer;
-    the tensors that are split, each gathered when rank 0 writes)."""
+    the tensors that are split, each gathered when rank 0 writes; the
+    floats of one rank's blocks of them)."""
     layers = read_wts(init_wts)
     specs = param_shardings(MeshConfig(1, model), len(layers))
     split = [(layer[k].size, "model" in spec[k])
              for layer, spec in zip(layers, specs) for k in ("w", "b")]
     return (sum(n // model if cut else n for n, cut in split),
-            sum(cut for _, cut in split))
+            sum(cut for _, cut in split),
+            sum(n // model for n, cut in split if cut))
+
+
+def tp_want(tfx: dict, init_wts: str, data: int, model: int, k: int,
+            backend: str) -> dict:
+    """What rank ``k`` of a ``data`` x ``model`` mesh (model > 1) must
+    report in its closing ``data mesh:`` line after ``EPOCHS`` epochs of
+    the CLI's training on ``tfx`` from the full-width ``init_wts``.
+
+    Per bunch: the data axis sums the GGD column sums and the gradients
+    (data > 1 only); the model axis sums layer 1's partial z and layer 2's
+    input gradient ([M/D, width] float32 each) and gathers layer 2's
+    columns ([M/D, width/model] from each rank); each CV batch runs the
+    sharded forward of all its rows (1 sum, 1 gather), and at each epoch's
+    end the ranks of data index 0 gather every split tensor for rank 0 to
+    write."""
+    bunches = ml_bunches(tfx) * EPOCHS
+    cv = cv_batches(tfx) * EPOCHS
+    floats, n_split, split_floats = shard_floats(init_wts, model)
+    width = read_wts(init_wts)[1]["w"].shape[1]
+    rows = bunches * BUNCH // data
+    cv_rows = sum(cv_windows(tfx)) * EPOCHS
+    writer = k < model
+    return {"colsum": bunches, "from_sums": bunches, "sgd": bunches,
+            "calls": 2 * bunches if data > 1 else 0,
+            "bytes": bunches * 4 * (257 + floats) if data > 1 else 0,
+            "model_calls": 2 * bunches + cv,
+            "model_bytes": 4 * width * (2 * rows + cv_rows),
+            "model_gathers": bunches + cv + (n_split * EPOCHS if writer
+                                             else 0),
+            "model_gather_bytes": (4 * width // model * (rows + cv_rows)
+                                   + (4 * split_floats * EPOCHS if writer
+                                      else 0)),
+            "data_gathers": 0, "replica_checks": EPOCHS,
+            "ranks": data * model, "rank": k, "backend": backend}
+
+
+def check_mesh_line(text: str, label: str, want: dict) -> dict:
+    """A rank's closing ``data mesh:`` line against ``want`` -> its
+    numbers."""
+    got = mesh_summary(text, label)
+    wrong = {key: (got[key], v) for key, v in want.items() if got[key] != v}
+    if wrong:
+        raise SystemExit(f"{label}: (got, wanted) {wrong}")
+    return got
+
+
+def rank0_files(out_dir: str, label: str) -> None:
+    """Require that a mesh run left rank 0's files alone."""
+    files = sorted(os.listdir(out_dir))
+    if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
+                 "mlp.2.wts"]:
+        raise SystemExit(f"{label}: files on disk {files}: not rank 0's "
+                         "alone")
+
+
+def worst_change(init_wts: str, one_dir: str, got_dir: str) -> float:
+    """Largest relative difference of the weight changes of ``got_dir``'s
+    ``mlp.2.wts`` from ``one_dir``'s, over tensors."""
+    return dp_epoch.worst_change(
+        read_wts(init_wts), read_wts(os.path.join(one_dir, "mlp.2.wts")),
+        read_wts(os.path.join(got_dir, "mlp.2.wts")))
+
+
+def worst_cv(one_dir: str, got_dir: str) -> float:
+    """Largest relative difference of the CV metrics in ``got_dir``'s
+    ``metrics.jsonl`` from ``one_dir``'s, over epochs and metrics."""
+    recs = []
+    for d in (one_dir, got_dir):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            recs.append([json.loads(line) for line in f])
+    return max(abs(g[k] - o[k]) / abs(o[k])
+               for o, g in zip(*recs)
+               for k in ("cv_squared_error", "cv_abs_error", "cv_ggd_loglik"))
 
 
 def tp_train_runs(root: str, train: dict) -> dict:
@@ -2612,7 +2730,6 @@ def tp_train_runs(root: str, train: dict) -> dict:
     tfx, init_wts = train["tfx"], train["init_wts"]
     bunches = ml_bunches(tfx) * EPOCHS
     cv = cv_batches(tfx) * EPOCHS
-    floats, n_split = shard_floats(init_wts, TP_MODEL)
     runs = {}
     for data in TP_DATA:
         n = data * TP_MODEL
@@ -2625,30 +2742,11 @@ def tp_train_runs(root: str, train: dict) -> dict:
                 *coordinator_flags(port, n, k, True)),
                 os.path.join(root, f"{name}.{k}.log")) for k in range(n)])
     launches = {"colsum": 0, "from_sums": 0, "sgd": 0}
-    w0 = read_wts(init_wts)
-    w_one = read_wts(os.path.join(root, "cuda_lr", "mlp.2.wts"))
     for name, (data, ranks) in runs.items():
         outs = wait_ranks(ranks, name)
         for k, text in enumerate(outs):
-            got = mesh_summary(text, f"{name} rank {k}")
-            # Per bunch: the data axis sums the GGD column sums and the
-            # gradients (2 x 2 only); the model axis sums layer 1's partial
-            # z and layer 2's input gradient and gathers layer 2's columns;
-            # each CV batch runs the sharded forward (1 sum, 1 gather), and
-            # at each epoch's end the ranks of data index 0 gather every
-            # split tensor for rank 0 to write.
-            want = {"colsum": bunches, "from_sums": bunches, "sgd": bunches,
-                    "calls": 2 * bunches if data > 1 else 0,
-                    "bytes": bunches * 4 * (257 + floats) if data > 1 else 0,
-                    "model_calls": 2 * bunches + cv,
-                    "model_gathers": bunches + cv + (
-                        n_split * EPOCHS if k < TP_MODEL else 0),
-                    "data_gathers": 0, "replica_checks": EPOCHS,
-                    "ranks": data * TP_MODEL, "rank": k, "backend": "gloo"}
-            wrong = {key: (got[key], v) for key, v in want.items()
-                     if got[key] != v}
-            if wrong:
-                raise SystemExit(f"{name} rank {k}: (got, wanted) {wrong}")
+            got = check_mesh_line(text, f"{name} rank {k}", tp_want(
+                tfx, init_wts, data, TP_MODEL, k, "gloo"))
             for key in launches:
                 launches[key] += got[key]
             if k == 0:
@@ -2661,23 +2759,13 @@ def tp_train_runs(root: str, train: dict) -> dict:
                       f"{got['model_gather_bytes']} bytes in all; "
                       f"{got['colsum']} + {got['from_sums']} split GGD "
                       f"launches for {bunches} ML bunches")
-        files = sorted(os.listdir(os.path.join(root, name)))
-        if files != ["metrics.jsonl", "mlp.1.log", "mlp.1.wts", "mlp.2.log",
-                     "mlp.2.wts"]:
-            raise SystemExit(f"{name}: files on disk {files}: not rank 0's "
-                             "alone")
+        rank0_files(os.path.join(root, name), name)
         if name.endswith("_again"):
             first = name[:-len("_again")]
             again = same_bytes(os.path.join(root, first, "mlp.2.wts"),
                                os.path.join(root, name, "mlp.2.wts"))
-            worst = 0.0
-            w_tp = read_wts(os.path.join(root, first, "mlp.2.wts"))
-            for a, one, tp in zip(w0, w_one, w_tp):
-                for key in ("w", "b"):
-                    d_one = one[key].astype(np.float64) - a[key]
-                    d_tp = tp[key].astype(np.float64) - a[key]
-                    worst = max(worst, np.linalg.norm(d_tp - d_one)
-                                / np.linalg.norm(d_one))
+            worst = worst_change(init_wts, os.path.join(root, "cuda_lr"),
+                                 os.path.join(root, first))
             print(f"tp      {first}: replicas and shards equal at {EPOCHS} "
                   f"epoch ends on every rank, only rank 0's files, rerun "
                   f"byte-identical = {again}, weight changes within "
@@ -2737,18 +2825,76 @@ def tp_phase(root: str, train: dict) -> dict:
     return launches
 
 
-def mesh_decode_phase(root: str, fx: dict) -> int:
-    """``Enhancer(mesh=)`` and ``StreamingEnhancer(mesh=)`` on two ranks
-    sharing the card over gloo (``bench/mesh_decode.py``) against the
-    card's one-process decode of the same waves and hops.  -> LPS kernel
-    launches on these paths."""
-    t0 = time.perf_counter()
-    os.makedirs(root)
+def decoder_launches(outs: list, one_launches: int, label: str) -> int:
+    """Each ``bench/mesh_decode`` rank's record: its LPS launches must be
+    the one-process decode's and its graph replays ``MESH_HOPS``.  -> the
+    ranks' LPS launches."""
+    launches = 0
+    for k, text in enumerate(outs):
+        r = json.loads(text.strip().splitlines()[-1])
+        if (r["lps_launches"], r["hops_replayed"]) != (one_launches,
+                                                        MESH_HOPS):
+            raise SystemExit(f"{label} {k}: {r}, wanted {one_launches} LPS "
+                             f"launches (the one-process decode's) and "
+                             f"{MESH_HOPS} replays")
+        launches += r["lps_launches"]
+    return launches
+
+
+def hold_decode(got: list, one: dict, label: str
+                ) -> tuple[float, float, dict]:
+    """Every rank's ``decode_all`` arrays (``got``) against rank 0's
+    (equal) and the one-process card decode's (``one``): waves within 1
+    int16 LSB, enhanced LPS within rtol 1e-5, atol 1e-5, masks equal.  ->
+    (worst LSB, worst LPS, whether each form's waves are bitwise)."""
+    worst_lsb = worst_lps = 0.0
+    bitwise = {}
+    for key, want in one.items():
+        if not all(np.array_equal(g[key], got[0][key]) for g in got[1:]):
+            raise SystemExit(f"{label}: the ranks return different {key}")
+        mine = got[0][key]
+        form = key.rstrip("0123456789").replace("_wave", "").replace(
+            "_lps", "")
+        if mine.dtype == np.int16:
+            lsb = wrapped_lsb(mine, want)
+            worst_lsb = max(worst_lsb, lsb)
+            bitwise[form] = bitwise.get(form, True) and np.array_equal(
+                mine, want)
+            if lsb > 1:
+                raise SystemExit(f"{label} {key}: {lsb} LSB from the "
+                                 "one-process card decode")
+        elif mine.dtype == bool:
+            if not np.array_equal(mine, want):
+                raise SystemExit(f"{label} {key} differs")
+        else:
+            worst_lps = max(worst_lps, float(np.abs(mine - want).max()))
+            if not np.allclose(mine, want, rtol=1e-5, atol=1e-5):
+                raise SystemExit(f"{label} {key}: LPS "
+                                 f"{np.abs(mine - want).max():.3e} from the "
+                                 "one-process card decode")
+    return worst_lsb, worst_lps, bitwise
+
+
+def mesh_problem(root: str, fx: dict) -> tuple[dict, str]:
+    """The decoder-mesh problem of the slice phase's waves and
+    ``MESH_STREAMS`` x ``MESH_HOPS`` hops, written to ``root``."""
     problem = {"waves": np.concatenate(fx["waves"]),
                "lengths": np.array([len(w) for w in fx["waves"]]),
                "hops": stream_hops(fx["waves"], MESH_STREAMS, MESH_HOPS)}
     path = os.path.join(root, "problem.npz")
     np.savez(path, **problem)
+    return problem, path
+
+
+def mesh_decode_phase(root: str, fx: dict) -> tuple[int, dict]:
+    """``Enhancer(mesh=)`` and ``StreamingEnhancer(mesh=)`` on two ranks
+    sharing the card over gloo (``bench/mesh_decode.py``) against the
+    card's one-process decode of the same waves and hops.  -> (LPS kernel
+    launches on these paths, the one-process decode: its arrays ``one``
+    and its LPS ``launches``)."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    problem, path = mesh_problem(root, fx)
     port = free_port()
     ranks = [start_rank(
         ["-m", "tpu_se_torch.bench.mesh_decode", "--wts", fx["wts"],
@@ -2761,42 +2907,11 @@ def mesh_decode_phase(root: str, fx: dict) -> int:
     torch.cuda.synchronize()
     one_launches = lps_kernel.launches
     outs = wait_ranks(ranks, "2 decoder ranks over gloo")
-    launches = one_launches
-    worst_lsb = worst_lps = 0.0
-    bitwise = {}
+    launches = one_launches + decoder_launches(outs, one_launches,
+                                               "decoder rank")
     got = [dict(np.load(os.path.join(root, f"mesh_decode.{k}.npz")))
            for k in (0, 1)]
-    for k, text in enumerate(outs):
-        r = json.loads(text.strip().splitlines()[-1])
-        if (r["lps_launches"], r["hops_replayed"]) != (one_launches,
-                                                        MESH_HOPS):
-            raise SystemExit(f"decoder rank {k}: {r}, wanted "
-                             f"{one_launches} LPS launches (the one-process "
-                             f"decode's) and {MESH_HOPS} replays")
-        launches += r["lps_launches"]
-    for key, want in one.items():
-        if not np.array_equal(got[1][key], got[0][key]):
-            raise SystemExit(f"decoder ranks return different {key}")
-        mine = got[0][key]
-        form = key.rstrip("0123456789").replace("_wave", "").replace(
-            "_lps", "")
-        if mine.dtype == np.int16:
-            lsb = wrapped_lsb(mine, want)
-            worst_lsb = max(worst_lsb, lsb)
-            bitwise[form] = bitwise.get(form, True) and np.array_equal(
-                mine, want)
-            if lsb > 1:
-                raise SystemExit(f"decoder mesh {key}: {lsb} LSB from the "
-                                 "one-process card decode")
-        elif mine.dtype == bool:
-            if not np.array_equal(mine, want):
-                raise SystemExit(f"decoder mesh {key} differs")
-        else:
-            worst_lps = max(worst_lps, float(np.abs(mine - want).max()))
-            if not np.allclose(mine, want, rtol=1e-5, atol=1e-5):
-                raise SystemExit(f"decoder mesh {key}: LPS "
-                                 f"{np.abs(mine - want).max():.3e} from the "
-                                 "one-process card decode")
+    worst_lsb, worst_lps, bitwise = hold_decode(got, one, "decoder mesh")
     # Where a form is not bitwise: one process given rank 0's rows of the
     # fast path's padded batch alone computes rank 0's bits, so the
     # difference is the row count of the products, not the mesh.
@@ -2822,6 +2937,414 @@ def mesh_decode_phase(root: str, fx: dict) -> int:
           f"enhanced LPS within {worst_lps:.3e}; LPS launches "
           f"{one_launches} per rank and in one process, {MESH_HOPS} replays "
           f"per rank; wall time {time.perf_counter() - t0:.2f} s")
+    return launches, {"one": one, "launches": one_launches}
+
+
+# The cross-card phase: NCCL, one rank per card.  Training meshes (data,
+# model, products' dtype, runs) at AGREE_LRATE, held to the one-process
+# card run; the meshes bench/dp_epoch times; the decoder meshes' data
+# ranks; the timed enhance_batch_waves: passes, and the batch (the slice
+# phase's utterances, repeated).
+CARD_TRAIN = ((1, 2, "float32", 2), (1, 2, "bfloat16", 1),
+              (2, 2, "float32", 2), (1, 4, "float32", 2))
+CARD_EPOCH = ((2, 1), (1, 2), (4, 1), (2, 2), (1, 4))
+CARD_DECODE = (2, 4)
+RATE_PASSES = 20
+RATE_REPEAT = 4
+# The timed StreamingEnhancer(mesh=): channels, hops per push_many call,
+# and timed windows of RATE_PASSES calls per variant.
+RATE_STREAMS = 128
+RATE_HOPS = 16
+RATE_WINDOWS = 2
+# A process running ``rate_child`` on the JSON object in its argument.
+RATE_CHILD = "import sys, chip_smoke; chip_smoke.rate_child(sys.argv[1])"
+
+
+def rate_child(arg: str) -> None:
+    """One rank (or, with 0 ranks, one process) timing the decoders on the
+    host clock, each window between a synchronise and a barrier at either
+    end: ``enhance_batch_waves`` of the batch (two warm-up passes, then
+    RATE_PASSES), then ``StreamingEnhancer.push_many(int16_wire=True)`` of
+    the problem's ``RATE_STREAMS`` x ``RATE_HOPS`` hops (one call kept, one
+    warm-up call, RATE_WINDOWS windows of RATE_PASSES calls, one call kept).
+    Under a data mesh a second streamer has the row padding of
+    ``_Step.rows`` taken out (its graphs captured again), and the windows
+    of the two take turns: the padding's cost.  Writes the padded
+    streamer's kept outputs to ``<out>.<rank>.npz``; its last line is
+    "rate <json>"."""
+    a = json.loads(arg)
+    with np.load(a["problem"]) as z:
+        waves = np.split(z["waves"], np.cumsum(z["lengths"])[:-1])
+        hops = z["hops"]
+    device, mesh = torch.device(a["device"]), None
+    if a["ranks"]:
+        info = initialize_distributed(a["coordinator"], a["ranks"],
+                                      a["rank"], None, a["device"])
+        device = info["device"]
+        mesh = make_mesh(device=device)
+
+    def window(fn, calls: int) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        sync_processes("rate")
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        sync_processes("rate")
+        return time.perf_counter() - t
+
+    try:
+        enh = Enhancer(a["wts"], a["norm"], device=device, mesh=mesh)
+        batch = waves * a["repeat"]
+        for _ in range(2):
+            out = enh.enhance_batch_waves(batch)
+        seconds = window(lambda: enh.enhance_batch_waves(batch),
+                         a["passes"])
+        streamers = {"padded": StreamingEnhancer(
+            a["wts"], a["norm"], n_streams=len(hops), device=device,
+            mesh=mesh)}
+        if mesh is not None and mesh.data > 1:
+            plain = StreamingEnhancer(a["wts"], a["norm"],
+                                      n_streams=len(hops), device=device,
+                                      mesh=mesh)
+            plain._step_args = plain._step_args._replace(rows=None)
+            if plain._step_graph is not None:
+                plain._step_graph = plain._capture(plain._step)
+                plain._flush_graph = plain._capture(plain._flush)
+                plain.reset()
+            streamers["unpadded"] = plain
+        kept = [streamers["padded"].push_many(hops, int16_wire=True)[0]]
+        for s in streamers.values():
+            s.push_many(hops, int16_wire=True)
+        stream_s = {name: [] for name in streamers}
+        for _ in range(a["windows"]):
+            for name, s in streamers.items():
+                stream_s[name].append(window(
+                    lambda s=s: s.push_many(hops, int16_wire=True),
+                    a["passes"]))
+        kept.append(streamers["padded"].push_many(hops, int16_wire=True)[0])
+    finally:
+        shutdown_distributed()
+    np.savez(f"{a['out']}.{a['rank']}.npz", first=kept[0], last=kept[1])
+    print("rate " + json.dumps({
+        "rank": a["rank"], "seconds": seconds, "utterances": len(out),
+        "stream_seconds": stream_s, "lps_launches": lps_kernel.launches}))
+
+
+def run_on_cards(clusters: list, root: str) -> dict:
+    """Clusters of child ranks ``(name, n_ranks, argv(port, k))``, one rank
+    per card, in order: as many started together as this process's cards
+    hold without two sharing one, then each waited for (``wait_ranks``).
+    Every rank of a cluster sees the cluster's cards and takes the k-th.
+    -> name -> the ranks' outputs."""
+    n_cards = torch.cuda.device_count()
+    outs, todo = {}, list(clusters)
+    while todo:
+        started, used = [], 0
+        while todo and used + todo[0][1] <= n_cards:
+            name, n, argv = todo.pop(0)
+            port = free_port()
+            cards = tuple(range(used, used + n))
+            started.append((name, [start_rank(
+                argv(port, k), os.path.join(root, f"{name}.{k}.log"), cards)
+                for k in range(n)]))
+            used += n
+        if not started:
+            raise SystemExit(f"{todo[0][0]}: {todo[0][1]} ranks, "
+                             f"{n_cards} cards")
+        for name, ranks in started:
+            outs[name] = wait_ranks(ranks, name)
+    return outs
+
+
+def card_train_runs(root: str, train: dict) -> dict:
+    """``CARD_TRAIN``'s meshes that this machine's cards hold, through
+    ``python -m tpu_se_torch train --mesh-model M`` over NCCL, one rank per
+    card: each rank's closing line against the layout's collectives
+    (``tp_want``), replicas equal at every epoch end, rank 0's files alone,
+    weight changes and CV metrics against the one-process card run of the
+    same products' dtype, and each float32 shape's rerun byte-identical.
+    -> the split GGD and optimizer kernels' launches."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    n_cards = torch.cuda.device_count()
+    bunches = ml_bunches(tfx) * EPOCHS
+    width = read_wts(init_wts)[1]["w"].shape[1]
+    clusters, shapes = [], {}
+    for data, model, dtype, times in CARD_TRAIN:
+        n = data * model
+        if n > n_cards:
+            continue
+        extra = ["--lrate", AGREE_LRATE, "--mesh-model", str(model)]
+        if dtype != "float32":
+            extra += ["--compute-dtype", dtype]
+        for again in range(times):
+            name = (f"nccl{data}x{model}_{dtype}"
+                    + ("_again" if again else ""))
+            shapes[name] = (data, model, dtype)
+            clusters.append((
+                name, n, lambda port, k, out=os.path.join(root, name), n=n,
+                extra=extra: train_rank_argv(
+                    tfx, init_wts, out, *extra,
+                    *coordinator_flags(port, n, k, False))))
+    outs = run_on_cards(clusters, root)
+    launches = {"colsum": 0, "from_sums": 0, "sgd": 0}
+    for name, texts in outs.items():
+        data, model, dtype = shapes[name]
+        for k, text in enumerate(texts):
+            line = (f"data mesh: data={data}, model={model}, rank {k} on "
+                    f"cuda:{k} (nccl)")
+            if line not in text:
+                raise SystemExit(f"{name} rank {k}: no '{line}' in\n{text}")
+            got = check_mesh_line(text, f"{name} rank {k}", tp_want(
+                tfx, init_wts, data, model, k, "nccl"))
+            for key in launches:
+                launches[key] += got[key]
+            if k == 0:
+                rank0 = got
+        rank0_files(os.path.join(root, name), name)
+        one = os.path.join(root, "cuda_lr" if dtype == "float32"
+                           else "bf16_cuda_lr")
+        dw = worst_change(init_wts, one, os.path.join(root, name))
+        cv = worst_cv(one, os.path.join(root, name))
+        bars = ((TRAIN_DW_RTOL, TRAIN_CV_RTOL) if dtype == "float32" else
+                (BF16_TRAIN_DW_RTOL, BF16_TRAIN_CV_RTOL))
+        again = ""
+        if name.endswith("_again"):
+            same = same_bytes(
+                os.path.join(root, name[:-len("_again")], "mlp.2.wts"),
+                os.path.join(root, name, "mlp.2.wts"))
+            again = f"; mlp.2.wts byte-identical to the first run's = {same}"
+            if not same:
+                raise SystemExit(f"{name}: a rerun wrote other bytes")
+        rows = BUNCH // data
+        print(f"cards   {name} ({data}x{model} over NCCL, {dtype}, lrate "
+              f"{AGREE_LRATE}): per bunch and rank, model axis 2 "
+              f"all-reduces of {4 * width * rows} bytes and 1 all-gather "
+              f"of {4 * width // model * rows} bytes, data axis "
+              f"{rank0['calls'] / bunches:.0f} "
+              f"all-reduces {rank0['bytes'] / bunches:.0f} bytes; in all "
+              f"model axis {rank0['model_calls']} all-reduces "
+              f"{rank0['model_bytes']} bytes, {rank0['model_gathers']} "
+              f"all-gathers {rank0['model_gather_bytes']} bytes (rank 0, CV "
+              f"and the writes included); {rank0['colsum']} + "
+              f"{rank0['from_sums']} split GGD and {rank0['sgd']} optimizer "
+              f"launches per rank for {bunches} ML bunches; replicas equal "
+              f"at {rank0['replica_checks']} epoch ends on every rank; weight "
+              f"changes within {dw:.3e} and CV metrics within {cv:.3e} of "
+              f"the one-process {dtype} card run (bars {bars[0]}, "
+              f"{bars[1]}){again}")
+        if not (dw <= bars[0] and cv <= bars[1]):
+            raise SystemExit(f"{name}: weight changes {dw:.3e}, CV "
+                             f"{cv:.3e} from one process")
+    return launches
+
+
+def card_epoch_times(root: str, train: dict,
+                     shapes: tuple = ((1, 1),) + CARD_EPOCH,
+                     profile: tuple = ()) -> dict:
+    """ms per global bunch of ``shapes`` (data, model) that the cards hold:
+    (1, 1) is one process (the one-device step), the rest meshes over
+    NCCL, one cluster at a time, through ``python -m
+    tpu_se_torch.bench.dp_epoch`` as it is; each reading is one run's
+    timed epoch.  The shapes in ``profile`` also trace a window of bunches
+    on every rank (``--profile``; it finds a bunch's all-reduces by their
+    count, 2 per bunch, which holds at a data axis of 1 alone).  -> the GGD
+    kernels' launches (fused, split) in these runs."""
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    n_cards = torch.cuda.device_count()
+    base = ["-m", "tpu_se_torch.bench.dp_epoch", "--fea-file", tfx["noisy"],
+            "--targ-file", tfx["clean"], "--norm-file", tfx["norm"],
+            "--init-wts", init_wts, "--train-sents", tfx["train_sents"],
+            "--traincache", str(tfx["traincache"]), "--device", "cuda"]
+    launches = {"fused": 0, "colsum": 0, "from_sums": 0}
+    for data, model in shapes:
+        n = data * model
+        if n > n_cards:
+            continue
+        name = f"epoch{data}x{model}"
+        traced = ["--profile"] if (data, model) in profile else []
+        flags = (lambda port, k, n=n, model=model: coordinator_flags(
+            port, n, k, False) + ["--mesh-model", str(model)]) if n > 1 \
+            else (lambda port, k: [])
+        texts = run_on_cards([(name, n, lambda port, k, flags=flags:
+                               base + flags(port, k) + traced)],
+                             root)[name]
+        recs = [json.loads(text.strip().splitlines()[-1]) for text in texts]
+        r, b = recs[0], recs[0]["bunches"]
+        per = {key: r[key] / b for key in r
+               if key.startswith(("data_", "model_"))}
+        label = ("one process, one-device step" if n == 1 else
+                 f"{data}x{model} over NCCL")
+        print(f"cards   dp_epoch {label}: "
+              f"{', '.join(f'{x['ms_per_bunch']:.4f}' for x in recs)} ms "
+              f"per global bunch (rank 0 first) over {b} bunches of "
+              f"{r['rows_per_rank']} rows per rank; per bunch and rank "
+              f"{json.dumps(per)}; GGD launches (fused, colsum, from_sums) "
+              f"{r['ggd_launches_both_epochs']} over both epochs; gathered "
+              f"span equal = {r['span_equal']}")
+        for x in recs if traced else ():
+            prof = x["profile"]
+            print(f"cards   dp_epoch {label} rank {x['rank']}, "
+                  f"{prof['bunches']} bunches traced: wall "
+                  f"{prof['wall_ms']:.4f} ms and device kernels "
+                  f"{prof['kernel_us']:.1f} us per bunch, NCCL kernels "
+                  f"{prof['nccl_kernels']} ({prof['nccl_us']:.1f} us in all); host "
+                  f"ops by self time, us per bunch: "
+                  + ", ".join(f"{op} {us:.1f}" for op, us
+                              in prof["host_self_us"].items()))
+        split = b if n > 1 else 0
+        for x in recs:
+            if not (x["span_equal"]
+                    and (x["ggd_colsum_launches"],
+                         x["ggd_grad_from_sums_launches"],
+                         x["ggd_output_grad_launches"])
+                    == (split, split, b - split)
+                    and x.get("model_all_gather_calls", 0) == (
+                        b if model > 1 else 0)):
+                raise SystemExit(f"dp_epoch {label}: {x}")
+            for key, got in zip(launches, x["ggd_launches_both_epochs"]):
+                launches[key] += got
+    return launches
+
+
+def card_decode_runs(root: str, fx: dict, one: dict,
+                     one_launches: int) -> int:
+    """``bench/mesh_decode`` over NCCL at ``CARD_DECODE``'s data ranks that
+    the cards hold, one rank per card, against the one-process card decode
+    (``one``, with ``one_launches`` LPS launches): the bars of
+    ``mesh_decode_phase`` (``hold_decode``), the int16 streams bitwise,
+    each rank's LPS launches the one process's.  Then the decoders timed by
+    ``rate_child`` in one process and at each of those rank counts, the
+    ``RATE_STREAMS`` streams of every rank bitwise one process's.  -> the
+    LPS kernel's launches."""
+    n_cards = torch.cuda.device_count()
+    _, path = mesh_problem(root, fx)
+    launches = 0
+    sizes = [n for n in CARD_DECODE if n <= n_cards]
+    for n in sizes:
+        name = f"decode{n}"
+        out = os.path.join(root, name)
+        os.makedirs(out)
+        texts = run_on_cards([(name, n, lambda port, k, n=n, out=out: [
+            "-m", "tpu_se_torch.bench.mesh_decode", "--wts", fx["wts"],
+            "--norm", fx["norm"], "--problem", path, "--out", out,
+            "--device", "cuda", *coordinator_flags(port, n, k, False)])],
+            root)[name]
+        launches += decoder_launches(texts, one_launches, f"{name} rank")
+        got = [dict(np.load(os.path.join(out, f"mesh_decode.{k}.npz")))
+               for k in range(n)]
+        lsb, lps, bitwise = hold_decode(got, one, f"{name} over NCCL")
+        print(f"cards   {n} decoder ranks over NCCL: Enhancer(mesh=) "
+              f"enhance (plain, blend auto), enhance_batch, "
+              f"enhance_batch_waves of {len(fx['waves'])} utterances, "
+              f"StreamingEnhancer(mesh=) of {MESH_STREAMS} streams x "
+              f"{MESH_HOPS} hops (int16 wire, {MESH_STREAMS // n} channels "
+              f"per rank); every rank returns the same; against the "
+              f"one-process card decode: waves within {lsb:.0f} LSB "
+              f"(bitwise by form: {bitwise}), enhanced LPS within "
+              f"{lps:.3e}; LPS launches {one_launches} per rank and in one "
+              f"process, {MESH_HOPS} replays per rank")
+        if not bitwise["stream"]:
+            raise SystemExit(f"{name}: the int16 streams are not one "
+                             "process's bits")
+    rate_path = os.path.join(root, "rate.npz")
+    np.savez(rate_path, waves=np.concatenate(fx["waves"]),
+             lengths=np.array([len(w) for w in fx["waves"]]),
+             hops=stream_hops(fx["waves"], RATE_STREAMS, RATE_HOPS))
+    ts = [len(w) // SHIFT - 1 for w in fx["waves"]]
+    frames = RATE_REPEAT * sum(ts) * RATE_PASSES
+    hops = RATE_HOPS * RATE_PASSES
+    rates, streams, reference = {}, {}, None
+    for n in [0] + sizes:
+        name = f"rate{n}"
+        texts = run_on_cards([(name, max(n, 1), lambda port, k, n=n: [
+            "-u", "-c", RATE_CHILD, json.dumps({
+                "problem": rate_path, "wts": fx["wts"], "norm": fx["norm"],
+                "ranks": n, "rank": k, "coordinator": f"127.0.0.1:{port}",
+                "device": "cuda", "repeat": RATE_REPEAT,
+                "passes": RATE_PASSES, "windows": RATE_WINDOWS,
+                "out": os.path.join(root, name)})])],
+            root)[name]
+        recs = [json.loads(line[len("rate "):]) for text in texts
+                for line in text.splitlines() if line.startswith("rate ")]
+        if len(recs) != max(n, 1) or any(
+                r["utterances"] != RATE_REPEAT * len(fx["waves"])
+                for r in recs):
+            raise SystemExit(f"{name}: {texts}")
+        launches += sum(r["lps_launches"] for r in recs)
+        rates[n] = frames / recs[0]["seconds"]
+        streams[n] = {variant: [s / hops * 1e3 for s in seconds]
+                      for variant, seconds in recs[0]["stream_seconds"].items()}
+        kept = [dict(np.load(os.path.join(root, f"{name}.{k}.npz")))
+                for k in range(max(n, 1))]
+        reference = reference or kept[0]
+        if not all(np.array_equal(got[key], want) for got in kept
+                   for key, want in reference.items()):
+            raise SystemExit(f"{name}: the {RATE_STREAMS} int16 streams are "
+                             "not one process's bits on every rank")
+    print(f"cards   enhance_batch_waves of a batch of "
+          f"{RATE_REPEAT * len(fx['waves'])} utterances "
+          f"({frames // RATE_PASSES} frames), {RATE_PASSES} passes, host "
+          f"clock: "
+          + "; ".join(f"{'one card' if n == 0 else f'{n} data ranks'} "
+                      f"{fps:.0f} frames/s ({fps / rates[0]:.3f} of one "
+                      f"card)" for n, fps in rates.items()))
+    print(f"cards   StreamingEnhancer push_many of {RATE_STREAMS} streams "
+          f"(int16 wire) in {RATE_HOPS}-hop calls, {RATE_WINDOWS} windows "
+          f"of {hops} hops in turns, host clock, ms per hop of all streams: "
+          + "; ".join(
+              f"{'one card' if n == 0 else f'{n} data ranks'} "
+              + ", ".join((f"{variant} " if n else "")
+                          + " / ".join(f"{ms:.4f}" for ms in per)
+                          for variant, per in by.items())
+              for n, by in streams.items())
+          + "; every rank's streams bitwise one process's (the padded "
+          "ones)")
+    return launches
+
+
+def cards_phase(root: str, fx: dict, train: dict, decoded: dict) -> dict:
+    """The mesh paths over NCCL, one rank per card, as far as this
+    machine's cards go, the decoders held to the one-process card decode
+    of ``mesh_decode_phase`` (``decoded``); one line names what needs more
+    cards than there are.  -> the kernels' launches on these paths."""
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    for name in ("cuda_lr", os.path.join("bf16", "cuda_lr")):
+        os.symlink(os.path.join(os.path.dirname(root), name),
+                   os.path.join(root, name.replace(os.sep, "_")))
+    n_cards = torch.cuda.device_count()
+    for line in subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines():
+        print(f"cards   {line}")
+    needs = {}
+    for data, model, dtype, times in CARD_TRAIN:
+        needs.setdefault(data * model, []).append(
+            f"train {data}x{model} {dtype} x{times}")
+    for data, model in CARD_EPOCH:
+        needs.setdefault(data * model, []).append(
+            f"dp_epoch {data}x{model}")
+    for n in CARD_DECODE:
+        needs.setdefault(n, []).append(
+            f"mesh_decode and the decoders' rates at {n} ranks")
+    left = [f"{', '.join(runs)} (each needs {n} cards)"
+            for n, runs in sorted(needs.items()) if n > n_cards]
+    print(f"cards   left out on {n_cards} card{'s' * (n_cards > 1)}: "
+          f"{'; '.join(left) if left else 'none'}")
+    launches = {"colsum": 0, "from_sums": 0, "sgd": 0, "fused": 0, "lps": 0}
+    if n_cards >= min(needs):
+        for key, n in card_train_runs(root, train).items():
+            launches[key] += n
+        for key, n in card_epoch_times(root, train).items():
+            launches[key] += n
+        launches["lps"] = card_decode_runs(root, fx, decoded["one"],
+                                           decoded["launches"])
+    print(f"cards   cross-card phase wall time: "
+          f"{time.perf_counter() - t0:.2f} s; launches {launches}")
     return launches
 
 
@@ -3307,24 +3830,28 @@ def main() -> int:
         dp = dp_phase(dev, os.path.join(root, "dp"), train)
         over = overlap_phase(dev, os.path.join(root, "overlap"), train)
         tp = tp_phase(os.path.join(root, "tp"), train)
-        mesh_lps = mesh_decode_phase(os.path.join(root, "mesh"), fx)
+        mesh_lps, decoded = mesh_decode_phase(os.path.join(root, "mesh"),
+                                              fx)
+        cards = cards_phase(os.path.join(root, "cards"), fx, train, decoded)
         examples = examples_phase(os.path.join(root, "examples"), fx)
         benches = benches_phase(os.path.join(root, "benches"))
 
     # Launches: over the decode, streaming (graph replays included),
-    # pipeline, bfloat16, decoder-mesh, example and bench paths; over the
-    # training, pipeline, bfloat16, overlapped-step (at mesh=None and the
-    # one-process references), example and bench paths; the split kernels'
-    # over the data-parallel, overlapped-step, tensor-parallel and scaling
-    # bench paths.  Device time (CUDA-graph replay) at the main path's
+    # pipeline, bfloat16, decoder-mesh, cross-card, example and bench
+    # paths; over the training, pipeline, bfloat16, overlapped-step (at
+    # mesh=None and the one-process references), cross-card (dp_epoch's one
+    # process), example and bench paths; the split kernels' over the
+    # data-parallel, overlapped-step, tensor-parallel, cross-card and
+    # scaling bench paths.  Device time (CUDA-graph replay) at the main path's
     # shapes: the batched decode's rows, the parity bunch.  The split entry
     # points' launches are the child ranks' own counts (one rank over NCCL,
     # two ranks over gloo twice), their times those of a bunch's 128 rows
     # on one rank.  The optimizer kernel's launches are one per trained
     # bunch on every path that trains on the card: the one-device runs
     # (each phase's GGD launches, held equal to its updates by
-    # ``update_check``), the ranks' own counts (data- and tensor-parallel
-    # phases) and the benches' child; its time is the full-width update's.
+    # ``update_check``), the ranks' own counts (data-parallel,
+    # tensor-parallel and cross-card training runs) and the benches'
+    # child; its time is the full-width update's.
     # No kernel's function is one PyTorch call (``torch.optim.SGD(fused=
     # True)`` keeps lr outside the velocity and adds the decay before the
     # momentum: another formula), so there is no library time.
@@ -3333,8 +3860,8 @@ def main() -> int:
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": (launches + stream_launches + pipe["lps_launches"]
-                     + bf16["lps_launches"] + mesh_lps + examples["lps"]
-                     + benches["lps"]),
+                     + bf16["lps_launches"] + mesh_lps + cards["lps"]
+                     + examples["lps"] + benches["lps"]),
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
@@ -3343,21 +3870,22 @@ def main() -> int:
         "launches": (train["launches"] + graph_launches
                      + pipe["ggd_launches"]
                      + bf16["ggd_launches"] + over["fused"]
-                     + examples["ggd"] + benches["ggd"]),
+                     + cards["fused"] + examples["ggd"] + benches["ggd"]),
         "max_abs_err": ggd["max_abs_err"],
         **ggd["times"][BUNCH], "library_ms": None}, {
         "name": "ggd_colsum", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
         "launches": (dp["launches"]["colsum"] + over["colsum"]
-                     + tp["colsum"] + benches["colsum"]),
+                     + tp["colsum"] + cards["colsum"] + benches["colsum"]),
         "max_abs_err": dp["max_abs_err"]["colsum"],
         **dp["times"][BUNCH]["colsum"], "library_ms": None}, {
         "name": "ggd_grad_from_sums", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",
         "launches": (dp["launches"]["from_sums"] + over["from_sums"]
-                     + tp["from_sums"] + benches["from_sums"]),
+                     + tp["from_sums"] + cards["from_sums"]
+                     + benches["from_sums"]),
         "max_abs_err": dp["max_abs_err"]["from_sums"],
         **dp["times"][BUNCH]["from_sums"], "library_ms": None}, {
         "name": "sgd_momentum_update", "route": "cuda",
@@ -3366,7 +3894,7 @@ def main() -> int:
         "launches": (train["launches"] + graph_launches
                      + pipe["ggd_launches"] + bf16["ggd_launches"]
                      + over["sgd"] + examples["ggd"] + benches["sgd"]
-                     + dp["launches"]["sgd"] + tp["sgd"]),
+                     + dp["launches"]["sgd"] + tp["sgd"] + cards["sgd"]),
         "max_abs_err": sgd["max_abs_err"], **sgd["times"],
         "library_ms": None}]}))
     print(f"card    {card}")
@@ -3376,5 +3904,34 @@ def main() -> int:
     return 0
 
 
+def cards_costs() -> int:
+    """``python chip_smoke.py --cards-costs``, on a machine with 2 or more
+    cards: the cross-card phase's timed runs alone, with the fixtures they
+    need.  The decoder meshes against the one-process card decode and the
+    decoders' rates (``card_decode_runs``), then ``dp_epoch`` at 1x2, 2x2
+    and 1x4, 1x2 and 1x4 traced on every rank (``card_epoch_times``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 1
+    print(f"card    {card_line()}")
+    load_library()
+    with tempfile.TemporaryDirectory() as root:
+        fx = write_fixtures(root)
+        problem, _ = mesh_problem(root, fx)
+        lps_kernel.launches = 0
+        one = decode_all(fx["wts"], fx["norm"], problem, None, "cuda")
+        torch.cuda.synchronize()
+        card_decode_runs(root, fx, one, lps_kernel.launches)
+        tfx = write_train_fixtures(root, SEED)
+        init_wts = os.path.join(root, "init.wts")
+        if cli_main(["gen-rand-net", "-o", init_wts, "--seed",
+                     str(SEED)]) != 0:
+            raise SystemExit("gen-rand-net failed")
+        card_epoch_times(root, {"tfx": tfx, "init_wts": init_wts},
+                         shapes=((1, 2), (2, 2), (1, 4)),
+                         profile=((1, 2), (1, 4)))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cards_costs() if sys.argv[1:] == ["--cards-costs"] else main())

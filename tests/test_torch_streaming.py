@@ -25,8 +25,11 @@ more than 1 LSB apart (measured: 1 LSB everywhere).
 Under a data mesh (``StreamingEnhancer(mesh=)``, two gloo ranks of
 ``tests/torch_mp_worker.py``, the twin of ``tests/test_parallel.py:222-242``)
 8 streams on the int16 wire are bitwise the port's one process on every
-rank (a rank's products have 4 rows instead of 8; measured bitwise here),
-and within 1 LSB of ``tpu_se``'s streamer under ``make_mesh(2, 1)``.
+rank, and within 1 LSB of ``tpu_se``'s streamer under ``make_mesh(2, 1)``;
+at a data axis of 4 (2 channels a rank) each rank's rows are one
+process's bits too, in one process (a ``Mesh`` without a group) and over
+four gloo ranks against one: every rank runs the network at the mesh's 8
+rows, since a 2-row product sums in another order than an 8-row one.
 
 The tests that need a card are marked ``cuda`` and skip without one;
 on a card (no JAX there) run
@@ -661,6 +664,54 @@ def test_sharded_streaming_matches_jax_sharded(mesh_stream):
     np.testing.assert_array_equal(ranks[0]["stream_valid"], valid)
     got = ranks[0]["stream"]
     assert np.abs(got.astype(np.int32) - np.asarray(out)).max() <= 1
+
+
+def _narrow_stream_problem(where):
+    """The smoke's utterances and 8 x 16 hops of them, with a model of
+    hidden width 64 (where the CPU's 2-row and 8-row products differ)."""
+    from tpu_se_torch.bench.fixtures import write_fixtures
+
+    fx = write_fixtures(str(where), layersizes=(1799, 64, 64, 64, 257))
+    return fx, stream_hops(fx["waves"], 8, 16)
+
+
+def test_a_mesh_rank_streams_one_process_bits(tmp_path):
+    """Each rank of a data axis of 4 (2 channels a rank; a ``Mesh``
+    without a group, whose gathers return the rank's own rows) streams
+    its rows of one process's 8 channels bit for bit.  A 2-row product
+    sums in another order than an 8-row one (at this width on the CPU, at
+    every width on a card, where cuBLAS picks another kernel), so the
+    streams drifted by 1 LSB until every rank ran its products at the
+    mesh's 8 rows."""
+    from tpu_se_torch.parallel import Mesh
+
+    fx, hops = _narrow_stream_problem(tmp_path)
+    one, valid = StreamingEnhancer(fx["wts"], fx["norm"], n_streams=8,
+                                   device="cpu").push_many(
+                                       hops, int16_wire=True)
+    for k in range(4):
+        mine, got_valid = StreamingEnhancer(
+            fx["wts"], fx["norm"], n_streams=8, device="cpu",
+            mesh=Mesh(k, 4, "cpu", None)).push_many(hops, int16_wire=True)
+        np.testing.assert_array_equal(got_valid, valid)
+        np.testing.assert_array_equal(mine, one[2 * k:2 * k + 2])
+
+
+def test_sharded_streaming_over_four_ranks_matches_one_rank(tmp_path):
+    """8 streams over four gloo ranks against one rank (the same worker,
+    so the same BLAS threads), bit for bit on every rank."""
+    from torch_mp_worker import run_decode_cluster
+
+    fx, hops = _narrow_stream_problem(tmp_path)
+    os.replace(fx["wts"], tmp_path / "m.wts")
+    os.replace(fx["norm"], tmp_path / "m.norm")
+    np.savez(tmp_path / "decode.npz", waves=np.concatenate(fx["waves"]),
+             lengths=np.array([len(w) for w in fx["waves"]]), hops=hops)
+    one, = run_decode_cluster(tmp_path, 1)
+    for rank in run_decode_cluster(tmp_path, 4):
+        np.testing.assert_array_equal(rank["stream_valid"],
+                                      one["stream_valid"])
+        np.testing.assert_array_equal(rank["stream"], one["stream"])
 
 
 @pytest.mark.parametrize("n_streams", [1, 3])

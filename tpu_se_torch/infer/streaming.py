@@ -33,7 +33,12 @@ What differs from the JAX module, and why:
   of its ``n_streams / data`` channels and its own captured graphs at
   that size, steps its rows of every hop and all-gathers the outputs, so
   every rank returns the ``[S, ...]`` that one process returns.  The
-  channels never interact: the gather is the only collective.
+  channels never interact: the gather is the only collective.  The
+  network alone runs at all S rows on every rank (the rank's channels at
+  their rows, zeros elsewhere): cuBLAS picks its kernel, and so a row's
+  sum order, by the row count (a 2-row product differs from an 8-row one
+  on an H100), and a channel's bits must not depend on the data axis'
+  size.  The products cost one card's; the rest of a hop splits.
 """
 
 from __future__ import annotations
@@ -96,6 +101,9 @@ class _Step(NamedTuple):
     compute_dtype: torch.dtype   # of the network's product operands
     cast_weights: list | None    # model.cast_weights(compute_dtype), made
                                  # once: a hop never casts a weight
+    rows: tuple | None = None    # under a data mesh (lo, S): this rank's
+                                 # channels are rows lo.. of the S that the
+                                 # network runs on (zeros elsewhere)
 
 
 def _ring_hops(frame_length: int, frame_shift: int) -> int:
@@ -168,9 +176,16 @@ def _enhance_and_emit(step: _Step, state: StreamState
     blend, smooth = step.blend, step.smooth
 
     x = state.lps_ring.reshape(s, context * n_bins)
+    if step.rows is not None:
+        # One process's row count: a row's sum order follows it (module
+        # docstring).
+        lo, rows = step.rows
+        x = F.pad(x, (0, 0, lo, rows - lo - s))
     enh = step.model(x, compute_dtype=step.compute_dtype,
-                     cast_weights=step.cast_weights
-                     ) / step.inv_std + step.mean
+                     cast_weights=step.cast_weights)
+    if step.rows is not None:
+        enh = enh[lo:lo + s]
+    enh = enh / step.inv_std + step.mean
     # The centre frame exists once count-1 >= half frames have been pushed.
     centre = state.count - 1 - half                           # [S] int32
     valid = centre >= 0
@@ -365,6 +380,9 @@ class StreamingEnhancer:
             raise ValueError(f"model dim {dim} != {self.n_bins} bins "
                              f"at {sample_rate} Hz")
         mean, inv_std = read_norm(norm_path, dim)
+        # This rank's channels: all of them without a mesh.
+        local = n_streams // data
+        lo = 0 if mesh is None else mesh.data_rank * local
         self._step_args = _Step(
             model=model,
             mean=torch.from_numpy(mean).to(self.device),
@@ -375,14 +393,12 @@ class StreamingEnhancer:
             frame_shift=self.frame_shift, blend=self.blend,
             smooth=self.smooth, compute_dtype=self.compute_dtype,
             cast_weights=(None if self.compute_dtype == torch.float32
-                          else model.cast_weights(self.compute_dtype)))
+                          else model.cast_weights(self.compute_dtype)),
+            rows=None if data == 1 else (lo, n_streams))
         self.context = context
         self.half = (context - 1) // 2
         self.ring_hops = _ring_hops(self.frame_length, self.frame_shift)
         self.n_streams = n_streams
-        # This rank's channels: all of them without a mesh.
-        local = n_streams // data
-        lo = 0 if mesh is None else mesh.data_rank * local
         self._mine = slice(lo, lo + local)
         # Allocated once: the step writes into these, never rebinds them.
         self.state = _init_state(local, self.frame_length,
