@@ -59,7 +59,9 @@ failing (non-zero exit) at the first fault:
    checks its outputs and that the GGD kernel launched once per ML bunch
    (and the optimizer kernel once per GGD launch, on every one-device
    card run here and below), and that a second card run writes a
-   byte-identical ``mlp.2.wts``; then runs the same command at
+   byte-identical ``mlp.2.wts``; ``train --dropoutflag 1`` twice (masks
+   drawn inside the replayed bunches; the rerun byte-identical, the
+   weights not the maskless run's); then runs the same command at
    ``--lrate 0.001`` on the card and on
    ``--device cpu`` and holds their weight changes to each other (per
    layer, relative difference <= 1e-3) and their CV metrics to rtol 1e-4;
@@ -81,7 +83,13 @@ failing (non-zero exit) at the first fault:
    then in turns), device busy us and launches per bunch (``torch.profiler``), the first call's
    ms (a warm-up bunch and the capture) and a call's with new frames (a
    capture again; the memory this adds) against an eager bunch's, beside
-   the card's name and power limit (in a child process, so that its
+   the card's name and power limit; with dropout masks (0.1, 0.1), M =
+   128 float32 and M = 4096 bfloat16, two chunks with a generator each,
+   replayed against eager (bitwise, the generators' offsets equal after
+   each chunk, one capture, replays = bunches - 1, the weights not those
+   of the chunks without masks, ms per bunch in turns); one NCCL rank (a
+   1x1 group in the child) replayed against its eager mesh loop at each
+   chunk and at M = 128 with masks (in a child process, so that its
    traces of training bunches stay out of this one);
 9. pipeline phase: the paper's whole pipeline through the CLI, in-process,
    at full width, from a 24-sentence 16 kHz noisy/clean wav corpus:
@@ -168,7 +176,9 @@ failing (non-zero exit) at the first fault:
    1e-3 of the one-process card run, a second run byte-identical, the
    ranks' own end-of-epoch replica check, only rank 0's files on disk, and
    (in ``dp_epoch``) the all-gathered resident span equal to the unsharded
-   one; the refusals (``--mesh-data 2`` and ``--mesh-model 2`` on one
+   one; one rank over NCCL with ``--dropoutflag 1``: its bunches
+   replayed but a warm-up per capture, ``mlp.2.wts`` byte-identical to the
+   one-process dropout run; the refusals (``--mesh-data 2`` and ``--mesh-model 2`` on one
    card, ``--mesh-model 3`` at a hidden width of 2048, NCCL with two ranks
    on one card); ms per bunch for one rank fused, one rank over NCCL and
    two ranks over gloo, with the bytes each collective moves;
@@ -213,7 +223,12 @@ failing (non-zero exit) at the first fault:
    ranks against the one-process card decode at the decoder-mesh phase's
    bars, the int16 streams bitwise; frames/s of ``enhance_batch_waves``
    over 16 utterances in one process and at each rank count (host clock);
-   the launches of these runs join the kernel table;
+   with four cards, the overlapped step at 4x1 (``overlap_mesh_runs``):
+   every rank's replayed bunches bit for bit its eager loop's, launches
+   and collectives equal, ms per global bunch beside the replayed flat
+   step's in turns, and every rank's replayed window traced (the µs NCCL
+   kernels run beside GEMM kernels); the launches of these runs join the
+   kernel table;
 16. host chunk loader phase (run after the training phase, at its
    fixtures): compiles ``tpu_se_torch/csrc/chunk_loader.cc`` with the host
    compiler (timed) and loads the library; reads, byte-swaps and
@@ -224,9 +239,14 @@ failing (non-zero exit) at the first fault:
    compared with the resident run's); epoch samples/s per chunk by both
    routes beside the resident epoch's;
 17. overlapped-step phase (after the data-parallel phase):
-   ``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
-   card, one epoch each from the same weights (bitwise, or the smoke
-   fails; one fused GGD launch per bunch); then, through
+   ``train_chunk_overlap`` replayed and eager and ``train_chunk`` replayed
+   at ``mesh=None`` on the card, three epochs each from the same weights
+   (the replayed overlapped state bitwise its eager loop's and the flat
+   step's, or the smoke fails; one fused GGD launch per bunch; ms per
+   bunch of the three in turns); the same three states on one NCCL rank
+   in float32 and bfloat16 (``overlap_mesh_runs``: replayed bitwise
+   eager, launches and collectives equal, a traced replayed window of
+   each step); then, through
    ``bench/dp_epoch.py --lrate 0.001 --out``, one process (flat step,
    float32 and bfloat16) as the reference, and one rank over NCCL and two
    ranks sharing the card over gloo, flat and ``--overlap``, one cluster
@@ -234,12 +254,14 @@ failing (non-zero exit) at the first fault:
    changes, with one all-reduce per layer and bunch plus the column sums'
    and two split GGD launches per bunch and rank; both overlapped forms
    again, byte-identical; the bfloat16 ring on two gloo ranks and on one
-   NCCL rank (within the bfloat16 bar of the bfloat16 reference); the
-   first timed runs trace 8 bunches (``dp_epoch --profile``): the
+   NCCL rank (within the bfloat16 bar of the bfloat16 reference); every
+   NCCL rank's bunches replayed, flat and overlapped; the first timed
+   runs trace 8 bunches (``dp_epoch --profile``): over gloo (eager) the
    backward products issued while each bunch's rings are in flight (two
-   per hidden layer overlapped, none flat), the us by which NCCL kernels
-   overlap GEMM kernels on the device, and where the host's time goes
-   (the host ops of most self time per bunch);
+   per hidden layer overlapped, none flat), over NCCL a replayed window
+   (``check_replayed_profile``); the us by which NCCL kernels overlap
+   GEMM kernels on the device, and where the host's time goes (the host
+   ops of most self time per bunch);
 18. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
    the slice phase's longest utterance with its model (graph replays = hops
    and two eager LPS calls per enhancer; the single stream as long as the
@@ -422,6 +444,13 @@ GRAPH_FRAMES = 32768
 GRAPH_LRATE = 0.1
 GRAPH_PROFILED = 8
 GRAPH_RECAPTURES = 5
+# Dropout in the train-graph phase: the reference's (visible_omit,
+# hid_omit) defaults (finetune.pl:75-76); (M, products' dtype, bunches per
+# chunk), each trained as two chunks with a generator each, seeded from
+# GRAPH_MASK_SEEDS, as train_one_epoch makes one per chunk.
+GRAPH_DROPOUT = (0.1, 0.1)
+DROPOUT_CHUNKS = ((BUNCH, "float32", 100), (BIG_BUNCH, "bfloat16", 20))
+GRAPH_MASK_SEEDS = (7, 8)
 TRACE_WINDOWS = 3         # traces of one bunch before a lost record fails
 EPOCHS = 2
 # name -> (with --clean-scp, extra decode flags)
@@ -1003,6 +1032,7 @@ def train_phase(dev, root: str) -> dict:
     print(f"train   second card run: mlp.2.wts byte-identical = {identical}")
     if not identical:
         raise SystemExit("two card training runs differ")
+    launches += dropout_runs(tfx, init_wts, root)
 
     lr = ("--lrate", AGREE_LRATE)
     cuda_rec = run_train(tfx, init_wts, os.path.join(root, "cuda_lr"),
@@ -1043,6 +1073,37 @@ def train_phase(dev, root: str) -> dict:
             "quiet": {"wts": os.path.join(root, "cuda_lr", "mlp.2.wts"),
                       "norm": tfx["norm"]},
             "tfx": tfx, "init_wts": init_wts}
+
+
+def dropout_runs(tfx: dict, init_wts: str, root: str) -> int:
+    """``train --dropoutflag 1`` (the reference's 0.1 / 0.1 masks) on the
+    card twice: every bunch but one warm-up per capture replayed, masks
+    and all; the rerun's ``mlp.2.wts`` byte-identical, and not the
+    maskless run's (``<root>/cuda``).  -> GGD launches (= updates)."""
+    t0 = time.perf_counter()
+    want = ml_bunches(tfx) * EPOCHS
+    launches, replays = 0, []
+    for name in ("dropout", "dropout_again"):
+        zero_train_counts()
+        run_train(tfx, init_wts, os.path.join(root, name), "cuda",
+                  "--dropoutflag", "1")
+        torch.cuda.synchronize()
+        replays.append(replay_check(f"train --dropoutflag 1 ({name})", want))
+        if ggd_kernel.launches != want:
+            raise SystemExit(f"train --dropoutflag 1: {ggd_kernel.launches} "
+                             f"GGD launches for {want} ML bunches")
+        launches += ggd_kernel.launches
+    wts = {name: os.path.join(root, name, "mlp.2.wts")
+           for name in ("dropout", "dropout_again", "cuda")}
+    again = same_bytes(wts["dropout"], wts["dropout_again"])
+    masked = not same_bytes(wts["dropout"], wts["cuda"])
+    print(f"train   --dropoutflag 1 on the card, twice ({'; '.join(replays)}"
+          f"): mlp.2.wts byte-identical = {again}, not the maskless run's "
+          f"= {masked}; {time.perf_counter() - t0:.2f} s")
+    if not (again and masked):
+        raise SystemExit("train --dropoutflag 1: a rerun differs, or the "
+                         "masks changed nothing")
+    return launches
 
 
 def train_graph_phase(dev) -> dict:
@@ -1159,38 +1220,139 @@ def train_graph_phase(dev) -> dict:
               f"{profiles[False][1]:.0f}; a fresh replayed chunk with the "
               f"optimizer kernel ({n} launches) bitwise equal to one with "
               f"the plain update; {card}")
+    launches += dropout_graph_chunks(dev, noisy, clean, layers, rng)
     split = mesh_graph_chunks(dev, noisy, clean, layers, rng)
     print(f"tgraph  train graph phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
     return launches, split
 
 
+def same_state(a, b) -> tuple[bool, float]:
+    """Two states' weights, velocity and alpha -> (bit for bit, the
+    largest difference)."""
+    pairs = list(zip(dp_epoch.state_tensors(a), dp_epoch.state_tensors(b)))
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max(float((x.float() - y.float()).abs().max()) for x, y in pairs))
+
+
+def masks_generator(dev, chunk: int) -> torch.Generator:
+    """The dropout masks' generator of a phase's ``chunk``-th chunk."""
+    return torch.Generator(device=dev).manual_seed(GRAPH_MASK_SEEDS[chunk])
+
+
+def dropout_graph_chunks(dev, noisy: torch.Tensor, clean: torch.Tensor,
+                         layers: list, rng) -> int:
+    """``train_chunk`` with dropout masks (``GRAPH_DROPOUT``), replayed
+    against eager from the same state, for each of ``DROPOUT_CHUNKS``: two
+    chunks with a generator each; after each chunk the two generators'
+    offsets equal, after both the weights, velocity and alpha bit for bit;
+    one capture for the replayed state, replays = bunches - 1; the
+    weights not those of the same chunks without masks (masks were
+    drawn); then ms per bunch of both in turns (the same chunks again).
+    -> GGD launches (= optimizer kernel launches)."""
+    launches = 0
+    for m, dtype, n in DROPOUT_CHUNKS:
+        chunks = [torch.from_numpy(rng.integers(
+            0, GRAPH_FRAMES - 7, size=(n, m))).to(dev) for _ in range(2)]
+        hyper = TrainHyper(bunchsize=m, compute_dtype=dtype,
+                           dropout=GRAPH_DROPOUT)
+        label = f"M={m} {dtype}, dropout {GRAPH_DROPOUT}"
+        states = {graph: make_train_state(params_from_numpy(layers, dev))
+                  for graph in (True, False)}
+        ms = {True: [], False: []}
+
+        def chunk(graph: bool, k: int, state=None) -> tuple[float, int]:
+            """ms per bunch of chunk k on ``graph``'s state (or ``state``,
+            without masks) -> (ms, the generator's offset after)."""
+            gen = masks_generator(dev, k) if state is None else None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_chunk(states[graph] if state is None else state, noisy,
+                        clean, chunks[k],
+                        GRAPH_LRATE, hyper, generator=gen, graph=graph)
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t) * 1e3 / n,
+                    None if gen is None else gen.get_offset())
+
+        zero_train_counts()
+        offsets = []
+        for k in range(2):
+            got = {graph: chunk(graph, k)[1] for graph in (True, False)}
+            if not got[True] == got[False] > 0:
+                raise SystemExit(f"train graph {label}: chunk {k}'s "
+                                 f"generator offsets, replayed {got[True]}"
+                                 f", eager {got[False]}")
+            offsets.append(got[True])
+        replays = replay_check(f"train graph {label}", 2 * n)
+        if step_mod.graphs_captured != 1 or ggd_kernel.launches != 4 * n:
+            raise SystemExit(f"train graph {label}: "
+                             f"{step_mod.graphs_captured} captures, "
+                             f"{ggd_kernel.launches} GGD launches for 2 x "
+                             f"2 x {n} bunches")
+        launches += ggd_kernel.launches
+        same, worst = same_state(states[True], states[False])
+        if not same:
+            raise SystemExit(f"train graph {label}: the replayed chunks "
+                             f"differ from the eager ones by {worst:.3e}")
+        zero_train_counts()
+        plain = make_train_state(params_from_numpy(layers, dev))
+        for k in range(2):
+            chunk(True, k, plain)
+        if torch.equal(plain.model.weights[0], states[True].model.weights[0]):
+            raise SystemExit(f"train graph {label}: the chunks with masks "
+                             f"trained the weights of chunks without")
+        for graph in (True, False, False, True):
+            ms[graph].append(sum(chunk(graph, k)[0] for k in range(2)) / 2)
+        launches += update_check(f"train graph {label}")
+
+        def times(graph: bool) -> str:
+            return ", ".join(f"{t:.4f}" for t in ms[graph])
+
+        print(f"tgraph  {label}, full width, 2 chunks of {n} bunches, a "
+              f"generator each, from one state (weights, velocity and "
+              f"alpha bitwise equal; {replays}, one capture; generator "
+              f"offsets equal after each chunk: {offsets}; weights not "
+              f"those of the chunks without masks): ms per bunch replayed "
+              f"{times(True)}, eager {times(False)} (in turns, both chunks "
+              f"again); {card_line()}")
+    return launches
+
+
 def mesh_graph_chunks(dev, noisy: torch.Tensor, clean: torch.Tensor,
                       layers: list, rng) -> int:
     """One NCCL rank (a 1x1 mesh, its group joined in this process):
-    each of ``GRAPH_CHUNKS``' chunks replayed (``graph=True``) against the
-    eager mesh loop (``graph=False``) from the same state: weights,
-    velocity and alpha bit for bit, the split GGD and optimizer launches
-    and ``Mesh.traffic`` of the two equal; then ms per bunch of each by
-    the host clock (ending in a synchronise), in turns.  -> the split
-    kernels' launches (each of the two; the updates as many)."""
+    each of ``GRAPH_CHUNKS``' chunks, and one M=128 chunk with dropout
+    masks (``GRAPH_DROPOUT``, a generator per state seeded alike), replayed
+    (``graph=True``) against the eager mesh loop (``graph=False``) from the
+    same state: weights, velocity and alpha bit for bit, the split GGD and
+    optimizer launches and ``Mesh.traffic`` of the two equal, the
+    generators' offsets equal; then ms per bunch of each by the host
+    clock (ending in a synchronise), in turns.  -> the split kernels'
+    launches (each of the two; the updates as many)."""
     info = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, None,
                                   str(dev))
     first = step_mod.read_counts(None)
+    cases = [(*c, None) for c in GRAPH_CHUNKS] + [
+        (BUNCH, "float32", DROPOUT_CHUNKS[0][2], GRAPH_DROPOUT)]
     try:
         mesh = make_mesh(1, 1, info["device"])
-        for m, dtype, n in GRAPH_CHUNKS:
+        for m, dtype, n, dropout in cases:
             starts = torch.from_numpy(rng.integers(
                 0, GRAPH_FRAMES - 7, size=(n, m))).to(dev)
-            hyper = TrainHyper(bunchsize=m, compute_dtype=dtype)
+            hyper = TrainHyper(bunchsize=m, compute_dtype=dtype,
+                               dropout=dropout)
             states, counts, ms = {}, {}, {True: [], False: []}
+            offsets = {}
 
             def chunk(graph: bool) -> float:
+                gen = None if dropout is None else masks_generator(dev, 0)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 train_chunk(states[graph], noisy, clean, starts,
-                            GRAPH_LRATE, hyper, mesh=mesh, graph=graph)
+                            GRAPH_LRATE, hyper, generator=gen, mesh=mesh,
+                            graph=graph)
                 torch.cuda.synchronize()
+                offsets[graph] = None if gen is None else gen.get_offset()
                 return (time.perf_counter() - t) * 1e3 / n
 
             replays = (step_mod.bunches_replayed, step_mod.graphs_captured)
@@ -1201,17 +1363,19 @@ def mesh_graph_chunks(dev, noisy: torch.Tensor, clean: torch.Tensor,
                 chunk(graph)
                 counts[graph] = [b - a for a, b in zip(
                     before, step_mod.read_counts(mesh.traffic))]
-            label = f"1 NCCL rank, M={m} {dtype}"
+            label = (f"1 NCCL rank, M={m} {dtype}"
+                     + ("" if dropout is None else f", dropout {dropout}"))
             replays = (step_mod.bunches_replayed - replays[0],
                        step_mod.graphs_captured - replays[1])
             if replays != (n - 1, 1):
                 raise SystemExit(f"train graph {label}: {replays[0]} "
                                  f"bunches replayed after {replays[1]} "
                                  f"captures for {n} bunches")
-            pairs = list(zip(dp_epoch.state_tensors(states[True]),
-                             dp_epoch.state_tensors(states[False])))
-            if not all(torch.equal(a, b) for a, b in pairs):
-                worst = max(float((a - b).abs().max()) for a, b in pairs)
+            if offsets[True] != offsets[False]:
+                raise SystemExit(f"train graph {label}: generator offsets "
+                                 f"{offsets}")
+            same, worst = same_state(states[True], states[False])
+            if not same:
                 raise SystemExit(f"train graph {label}: the replayed chunk "
                                  f"differs from the eager one by "
                                  f"{worst:.3e}")
@@ -1225,13 +1389,15 @@ def mesh_graph_chunks(dev, noisy: torch.Tensor, clean: torch.Tensor,
                                  f"{counts[False]}")
             for graph in (True, False, False, True):
                 ms[graph].append(chunk(graph))
+            masks = ("" if dropout is None else
+                     f"; generator offsets equal ({offsets[True]})")
             print(f"tgraph  {label}, full width, {n} bunches from one state "
                   f"(weights, velocity and alpha bitwise equal to the eager "
                   f"mesh loop's; {replays[0]} replayed + 1 warm-up bunch; "
                   f"split GGD and optimizer "
                   f"launches and collectives equal: "
-                  f"{counts[True][4:]} calls and bytes per axis and op): ms "
-                  f"per bunch replayed "
+                  f"{counts[True][4:]} calls and bytes per axis and op"
+                  f"{masks}): ms per bunch replayed "
                   f"{', '.join(f'{t:.4f}' for t in ms[True])}, eager "
                   f"{', '.join(f'{t:.4f}' for t in ms[False])} (in turns); "
                   f"{card_line()}")
@@ -2552,6 +2718,10 @@ def dp_train_runs(root: str, train: dict) -> dict:
     nccl1 = [start_rank(train_rank_argv(
         tfx, init_wts, os.path.join(root, "nccl1"),
         *coordinator_flags(free_port(), 1, 0, False)), log("nccl1"))]
+    nccl1_dropout = [start_rank(train_rank_argv(
+        tfx, init_wts, os.path.join(root, "nccl1_dropout"), "--dropoutflag",
+        "1", *coordinator_flags(free_port(), 1, 0, False)),
+        log("nccl1_dropout"))]
     gloo = {}
     for name in ("gloo2", "gloo2_again"):
         port = free_port()
@@ -2609,6 +2779,24 @@ def dp_train_runs(root: str, train: dict) -> dict:
                          f"launches of each, {2 * bunches} collectives of "
                          f"{want_bytes} bytes and the single-process bytes")
     launches = {k: got[k] for k in ("colsum", "from_sums", "sgd")}
+
+    # The same rank with dropout masks: drawn inside its replayed bunches
+    # (the whole bunch's from the shared seed), the one process's bytes.
+    out = wait_ranks(nccl1_dropout, "1 rank over NCCL, dropout")[0]
+    got = mesh_summary(out, "1 rank over NCCL, dropout")
+    identical = same_bytes(os.path.join(root, "nccl1_dropout", "mlp.2.wts"),
+                           os.path.join(root, "dropout", "mlp.2.wts"))
+    print(f"dp      1 rank over NCCL, --dropoutflag 1: "
+          f"{mesh_replays(got, bunches, '1 rank over NCCL, dropout')}; "
+          f"split GGD {got['colsum']} + {got['from_sums']}, optimizer "
+          f"{got['sgd']} launches for {bunches} ML bunches; mlp.2.wts "
+          f"byte-identical to the single-process dropout run = {identical}")
+    if not (got["colsum"] == got["from_sums"] == got["sgd"] == bunches
+            and got["calls"] == 2 * bunches and identical):
+        raise SystemExit(f"1 rank over NCCL, dropout: {got}, identical "
+                         f"{identical}")
+    for key in launches:
+        launches[key] += got[key]
 
     # 2 ranks sharing the card over gloo, lrate 0.001, twice.
     for name, ranks in gloo.items():
@@ -2735,7 +2923,7 @@ def dp_phase(dev, root: str, train: dict) -> dict:
     os.makedirs(root)
     split = split_kernel_phase(dev)
     # The training phase's outputs that the ranks are held to.
-    for name in ("cuda", "cuda_lr"):
+    for name in ("cuda", "cuda_lr", "dropout"):
         os.symlink(os.path.join(os.path.dirname(root), name),
                    os.path.join(root, name))
     split["launches"] = dp_train_runs(root, train)
@@ -3072,6 +3260,8 @@ CARD_TRAIN = ((1, 2, "float32", 2), (1, 2, "bfloat16", 1),
               (2, 2, "float32", 2), (1, 4, "float32", 2))
 CARD_EPOCH = ((2, 1), (1, 2), (1, 2, "bfloat16"), (4, 1), (2, 2), (1, 4))
 CARD_DECODE = (2, 4)
+# The overlapped step's data mesh across cards, replayed against eager.
+CARD_OVERLAP = 4
 RATE_PASSES = 20
 RATE_REPEAT = 4
 # The timed StreamingEnhancer(mesh=): channels, hops per push_many call,
@@ -3473,6 +3663,8 @@ def cards_phase(root: str, fx: dict, train: dict, decoded: dict) -> dict:
     for n in CARD_DECODE:
         needs.setdefault(n, []).append(
             f"mesh_decode and the decoders' rates at {n} ranks")
+    needs.setdefault(CARD_OVERLAP, []).append(
+        f"the overlapped step {CARD_OVERLAP}x1 replayed against eager")
     left = [f"{', '.join(runs)} (each needs {n} cards)"
             for n, runs in sorted(needs.items()) if n > n_cards]
     print(f"cards   left out on {n_cards} card{'s' * (n_cards > 1)}: "
@@ -3485,6 +3677,10 @@ def cards_phase(root: str, fx: dict, train: dict, decoded: dict) -> dict:
             launches[key] += n
         launches["lps"] = card_decode_runs(root, fx, decoded["one"],
                                            decoded["launches"])
+    if n_cards >= CARD_OVERLAP:
+        for key, n in overlap_mesh_runs(root, train, CARD_OVERLAP,
+                                        ("float32",), True, "cards").items():
+            launches[key] += n
     print(f"cards   cross-card phase wall time: "
           f"{time.perf_counter() - t0:.2f} s; launches {launches}")
     return launches
@@ -3589,43 +3785,210 @@ def overlap_epoch_argv(tfx: dict, init_wts: str, out: str, *extra) -> list:
             "--lrate", AGREE_LRATE, "--out", out, *extra]
 
 
-def overlap_unsharded(dev, tfx: dict, init_wts: str) -> int:
-    """``train_chunk_overlap`` and ``train_chunk`` at ``mesh=None`` on the
-    card, one epoch each from the same weights.  -> fused GGD launches."""
-    cfg = TrainConfig(train_sent_range=tuple(
-        int(x) for x in tfx["train_sents"].split("-")),
-        traincache=tfx["traincache"])
+# The overlapped step against its eager loop and the flat step: the order
+# of the timed epochs (2 then 3) of the three states, in turns.
+OVERLAP_TURNS = ("overlap", "flat", "eager", "eager", "flat", "overlap")
+# A process running ``overlap_child`` on the JSON object in its argument.
+OVERLAP_CHILD = "import sys, chip_smoke; chip_smoke.overlap_child(sys.argv[1])"
+
+
+def overlap_epochs(dev, tfx: dict, init_wts: str, dtype: str = "float32",
+                   mesh=None) -> dict:
+    """Three states from the same weights over the training fixtures'
+    resident span, at lrate ``AGREE_LRATE``: ``train_chunk_overlap``
+    replayed ("overlap"), the same step eager ("eager", ``graph=False``)
+    and ``train_chunk`` replayed ("flat"); a warm-up epoch each (a capture
+    each replayed state), then epochs 2 and 3 in ``OVERLAP_TURNS``, each
+    between a synchronise and a barrier (host clock).  -> the states, ms
+    per bunch of each, each state's first timed epoch's counts
+    (``read_counts``, then bunches replayed and graphs captured), the
+    bunches of an epoch, and the dataset, frames and hyper-parameters."""
+    lo, hi = (int(x) for x in tfx["train_sents"].split("-"))
+    cfg = TrainConfig(train_sent_range=(lo, hi), traincache=tfx["traincache"],
+                      lrate=float(AGREE_LRATE), compute_dtype=dtype)
     ds = PfilePairDataset(tfx["noisy"], tfx["clean"], tfx["norm"],
                           cfg.train_sent_range, cfg.traincache)
-    frames = load_device_frames(ds, dev)
-    states = {}
-    zero_train_counts()
-    for name, step in (("overlap", train_chunk_overlap),
-                       ("flat", train_chunk)):
-        states[name] = load_checkpoint(init_wts, dev)
-        train_one_epoch(states[name], ds, cfg.hyper(), cfg.lr_for_epoch(1),
-                        np.random.default_rng(cfg.seed_for_epoch(1)), dev,
-                        device_frames=frames, log=lambda s: None, step=step)
-    torch.cuda.synchronize()
-    launches = ggd_kernel.launches
-    pairs = [(a.detach(), b.detach()) for a, b in zip(
-        states["overlap"].model.parameters(),
-        states["flat"].model.parameters())]
-    worst = max(float((a - b).abs().max()) for a, b in pairs)
-    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    frames = load_device_frames(ds, dev, mesh)
+    hyper = cfg.hyper()
+    steps = {"overlap": train_chunk_overlap,
+             "eager": functools.partial(train_chunk_overlap, graph=False),
+             "flat": train_chunk}
+    states = {name: load_checkpoint(init_wts, dev, mesh=mesh)
+              for name in steps}
+    traffic = None if mesh is None else mesh.traffic
+
+    def counts() -> list:
+        return [*step_mod.read_counts(traffic), step_mod.bunches_replayed,
+                step_mod.graphs_captured]
+
+    def epoch(name: str, number: int) -> tuple[float, list]:
+        before = counts()
+        torch.cuda.synchronize(dev)
+        sync_processes("overlap")
+        t = time.perf_counter()
+        train_one_epoch(states[name], ds, hyper, cfg.lr_for_epoch(number),
+                        np.random.default_rng(cfg.seed_for_epoch(number)),
+                        dev, device_frames=frames, log=lambda s: None,
+                        mesh=mesh, step=steps[name])
+        torch.cuda.synchronize(dev)
+        sync_processes("overlap")
+        return (time.perf_counter() - t, [b - a for a, b in
+                                          zip(before, counts())])
+
+    for name in steps:
+        epoch(name, 1)
     bunches = ml_bunches(tfx)
-    print(f"overlap mesh=None on the card, one epoch at lrate "
-          f"{cfg.lrate} from the same weights: train_chunk_overlap against "
-          f"train_chunk, largest weight difference {worst:.3e}, bitwise "
-          f"= {bitwise}; ggd_output_grad (fused) launches {launches} for "
-          f"2 x {bunches} ML bunches (train_chunk: "
-          f"{replay_check('mesh=None train_chunk', bunches)})")
-    if not bitwise:
-        raise SystemExit(f"mesh=None: train_chunk_overlap differs from "
-                         f"train_chunk by {worst:.3e}")
-    if launches != 2 * bunches:
+    ms, moved = {name: [] for name in steps}, {}
+    for i, name in enumerate(OVERLAP_TURNS):
+        seconds, got = epoch(name, 2 if i < len(steps) else 3)
+        ms[name].append(seconds / bunches * 1e3)
+        moved.setdefault(name, got)
+    return {"states": states, "ms": ms, "moved": moved, "bunches": bunches,
+            "ds": ds, "frames": frames, "hyper": hyper}
+
+
+def overlap_unsharded(dev, tfx: dict, init_wts: str) -> int:
+    """``overlap_epochs`` at ``mesh=None`` on the card: the replayed
+    overlapped state bit for bit its eager loop's and the replayed flat
+    step's (in float32 at ``mesh=None`` every operation is one autograd
+    runs), one capture per replayed state, one fused GGD launch per
+    bunch; ms per bunch of the three in turns.  -> fused GGD launches."""
+    t0 = time.perf_counter()
+    zero_train_counts()
+    run = overlap_epochs(dev, tfx, init_wts)
+    states, bunches = run["states"], run["bunches"]
+    launches = ggd_kernel.launches
+    eager, worst = same_state(states["overlap"], states["eager"])
+    flat, worst_flat = same_state(states["overlap"], states["flat"])
+    replays = replay_check("mesh=None replayed", 2 * 3 * bunches)
+    ms = {k: ", ".join(f"{t:.4f}" for t in v) for k, v in run["ms"].items()}
+    print(f"overlap mesh=None on the card, 3 epochs each at lrate "
+          f"{AGREE_LRATE} from the same weights: train_chunk_overlap "
+          f"replayed against its eager loop bitwise = {eager} (largest "
+          f"difference {worst:.3e}), against train_chunk replayed bitwise "
+          f"= {flat} ({worst_flat:.3e}); {replays}; fused GGD launches "
+          f"{launches} for 3 x 3 x {bunches} ML bunches; ms per bunch "
+          f"(epochs 2 and 3 in turns) overlapped replayed {ms['overlap']}, "
+          f"flat replayed {ms['flat']}, overlapped eager {ms['eager']}; "
+          f"{time.perf_counter() - t0:.2f} s; {card_line()}")
+    if not (eager and flat):
+        raise SystemExit(f"mesh=None: the replayed train_chunk_overlap "
+                         f"differs from its eager loop ({worst:.3e}) or "
+                         f"from train_chunk ({worst_flat:.3e})")
+    if launches != 9 * bunches or step_mod.graphs_captured != 2:
         raise SystemExit(f"mesh=None: {launches} fused GGD launches for "
-                         f"2 x {bunches} bunches")
+                         f"9 x {bunches} bunches, "
+                         f"{step_mod.graphs_captured} captures")
+    return launches
+
+
+def overlap_child(arg: str) -> None:
+    """One NCCL rank of a ``ranks`` x 1 data mesh (one card a rank):
+    ``overlap_epochs`` for each of ``dtypes``, then, with ``profile``, a
+    traced window of replayed bunches of the overlapped and of the flat
+    state (``bench/dp_epoch.profile_bunches``).  Prints "overlap-child
+    <json>": per dtype whether the replayed overlapped state is its eager
+    loop's bit for bit (and the flat step's), the first timed epochs'
+    counts of each state, ms per global bunch, and the traces; then the
+    split GGD and optimizer kernels' launches of the process."""
+    a = json.loads(arg)
+    info = initialize_distributed(a["coordinator"], a["ranks"], a["rank"],
+                                  None, "cuda")
+    out = {"rank": a["rank"], "ranks": a["ranks"], "runs": {}}
+    try:
+        dev = info["device"]
+        mesh = make_mesh(None, 1, dev)
+        for dtype in a["dtypes"]:
+            run = overlap_epochs(dev, a["tfx"], a["init_wts"], dtype, mesh)
+            states = run["states"]
+            got = {"bunches": run["bunches"], "ms": run["ms"],
+                   "moved": run["moved"]}
+            got["bitwise"], got["max_abs_diff"] = same_state(
+                states["overlap"], states["eager"])
+            got["flat_bitwise"], _ = same_state(states["overlap"],
+                                                states["flat"])
+            if a["profile"]:
+                got["profile"] = {name: dp_epoch.profile_bunches(
+                    states[name], run["ds"], run["frames"], run["hyper"],
+                    step, mesh, dp_epoch.PROFILE_BUNCHES, dev)
+                    for name, step in (("overlap", train_chunk_overlap),
+                                       ("flat", train_chunk))}
+            out["runs"][dtype] = got
+    finally:
+        shutdown_distributed()
+    out["launches"] = {"colsum": ggd_kernel.colsum_launches,
+                       "from_sums": ggd_kernel.grad_from_sums_launches,
+                       "sgd": sgd_kernel.launches}
+    print("overlap-child " + json.dumps(out))
+
+
+def overlap_mesh_runs(root: str, train: dict, ranks: int, dtypes: tuple,
+                      profile: bool, tag: str) -> dict:
+    """``overlap_child`` on ``ranks`` NCCL ranks, one card each: on every
+    rank and for each dtype the replayed overlapped step bit for bit its
+    eager loop, the first timed epochs' launches and ``Mesh.traffic`` of
+    the two equal to the byte (the column sums and one all-reduce per
+    layer, two in bfloat16, per bunch), every bunch of the replayed one a
+    replay and none of the eager one's; ms per global bunch of the three
+    states in turns; with ``profile`` every rank's replayed window of the
+    overlapped and the flat step (``check_replayed_profile``) and the µs
+    its NCCL kernels ran beside GEMM kernels.  -> the split GGD and
+    optimizer kernels' launches."""
+    t0 = time.perf_counter()
+    tfx, init_wts = train["tfx"], train["init_wts"]
+    n_layers = len(read_wts(init_wts))
+    name = f"overlap{ranks}x1"
+    texts = run_on_cards([(name, ranks, lambda port, k: [
+        "-u", "-c", OVERLAP_CHILD, json.dumps({
+            "tfx": tfx, "init_wts": init_wts, "ranks": ranks, "rank": k,
+            "coordinator": f"127.0.0.1:{port}", "dtypes": list(dtypes),
+            "profile": profile})])], root)[name]
+    recs = [json.loads(line[len("overlap-child "):]) for text in texts
+            for line in text.splitlines()
+            if line.startswith("overlap-child ")]
+    if len(recs) != ranks:
+        raise SystemExit(f"{tag}: {texts}")
+    launches = {"colsum": 0, "from_sums": 0, "sgd": 0}
+    for r in recs:
+        for key in launches:
+            launches[key] += r["launches"][key]
+        for dtype, got in r["runs"].items():
+            label = f"{tag} {ranks}x1 {dtype} rank {r['rank']}"
+            b = got["bunches"]
+            over, eager = got["moved"]["overlap"], got["moved"]["eager"]
+            per_layer = 1 if dtype == "float32" else 2
+            if not (got["bitwise"] and over[:-2] == eager[:-2]
+                    and over[-2:] == [b, 0] and eager[-2:] == [0, 0]
+                    and over[:4] == [0, b, b, b]
+                    and over[4] == b * (1 + per_layer * n_layers)):
+                raise SystemExit(f"{label}: the replayed overlapped step "
+                                 f"against its eager loop (largest "
+                                 f"difference {got['max_abs_diff']:.3e}): "
+                                 f"{got}")
+            ms = {k: " / ".join(f"{t:.4f}" for t in v)
+                  for k, v in got["ms"].items()}
+            print(f"overlap {label}: replayed bitwise its eager loop, "
+                  f"launches and collectives equal ({over[4] // b} "
+                  f"all-reduces, {over[5] // b} bytes per bunch), {b} of "
+                  f"{b} bunches replayed; bitwise the flat step = "
+                  f"{got['flat_bitwise']}; ms per global bunch (epochs 2 "
+                  f"and 3 in turns) overlapped replayed {ms['overlap']}, "
+                  f"flat replayed {ms['flat']}, overlapped eager "
+                  f"{ms['eager']}")
+            for step, prof in got.get("profile", {}).items():
+                check_replayed_profile(f"{label} {step}", prof, n_layers,
+                                       ranks)
+                print(f"overlap {label} {step}, {prof['bunches']} replayed "
+                      f"bunches traced: NCCL kernels {prof['nccl_kernels']} "
+                      f"({prof['nccl_us']:.1f} us), GEMM kernels "
+                      f"{prof['gemm_kernels']}, overlapping for "
+                      f"{prof['nccl_gemm_overlap_us']:.1f} us; per bunch "
+                      f"wall {prof['wall_ms']:.4f} ms, busy "
+                      f"{prof['busy_us']:.1f} us (compute "
+                      f"{prof['compute_busy_us']:.1f}), idle share "
+                      f"{prof['idle_share']:.4f}")
+    print(f"overlap {tag} {ranks}x1: {time.perf_counter() - t0:.2f} s with "
+          f"the ranks' start; {card_line()}")
     return launches
 
 
@@ -3648,13 +4011,13 @@ def check_replayed_profile(label: str, prof: dict, n_layers: int,
 def show_profile(name: str, prof: dict, n_layers: int, step: str,
                  ranks: int) -> None:
     """Print (and check) ``bench/dp_epoch.py --profile``'s trace.  Eager
-    bunches (the overlapped step, gloo): the backward products issued
-    while a bunch's gradient all-reduces were in flight (the overlapped
-    step issues two per hidden layer behind its first ring, the flat step
-    none).  Replayed bunches (the flat step over NCCL): the trace holds
-    the bunch's GEMM kernels and, over more than one rank, NCCL kernels
-    (``check_replayed_profile``).  Both: the device time NCCL kernels share
-    with GEMM kernels, and the host ops of most self time per bunch."""
+    bunches (gloo): the backward products issued while a bunch's gradient
+    all-reduces were in flight (the overlapped step issues two per hidden
+    layer behind its first ring, the flat step none).  Replayed bunches
+    (either step over NCCL): the trace holds the bunch's GEMM kernels and,
+    over more than one rank, NCCL kernels (``check_replayed_profile``).
+    Both: the device time NCCL kernels share with GEMM kernels, and the
+    host ops of most self time per bunch."""
     if prof["replayed"]:
         issued = (f"replayed bunches, collectives per bunch (Mesh.traffic) "
                   f"{json.dumps(prof['collectives_per_bunch'])}")
@@ -3674,8 +4037,6 @@ def show_profile(name: str, prof: dict, n_layers: int, step: str,
           f" us, busy {prof['busy_us']:.1f} us, idle share "
           f"{prof['idle_share']:.4f}; host self us: {ops}")
     if prof["replayed"]:
-        if step == "overlap":
-            raise SystemExit(f"overlap {name}: the overlapped step replayed")
         check_replayed_profile(f"overlap {name}", prof, n_layers, ranks)
         return
     want = 2 * (n_layers - 1) if step == "overlap" else 0
@@ -3723,8 +4084,7 @@ def overlap_runs(root: str, train: dict) -> dict:
             calls = r["all_reduce_calls"]
             want = bunches * (per_layer * n_layers + 1
                               if r["step"] == "overlap" else 2)
-            replays = (bunches if (r["step"], r["backend"]) == (
-                "flat", "nccl") else 0)
+            replays = bunches if r["backend"] == "nccl" else 0
             if not (r["span_equal"] and both == [0, 2 * bunches,
                                                  2 * bunches]
                     and calls == want
@@ -3787,13 +4147,18 @@ def overlap_runs(root: str, train: dict) -> dict:
 
 def overlap_phase(dev, root: str, train: dict) -> dict:
     """-> the GGD kernels' launches on the overlapped paths, and the
-    optimizer kernel's at ``mesh=None`` (one per fused GGD launch there)."""
+    optimizer kernel's at ``mesh=None`` (one per fused GGD launch there)
+    and on the NCCL rank of ``overlap_mesh_runs``."""
     t0 = time.perf_counter()
     os.makedirs(root)
     fused = overlap_unsharded(dev, train["tfx"], train["init_wts"])
     launches = overlap_runs(root, train)
+    nccl = overlap_mesh_runs(root, train, 1, ("float32", "bfloat16"), True,
+                             "overlap NCCL")
+    for key in ("colsum", "from_sums"):
+        launches[key] += nccl[key]
     launches["fused"] += fused
-    launches["sgd"] = fused
+    launches["sgd"] = fused + nccl["sgd"]
     print(f"overlap overlapped-step phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
     return launches
@@ -4091,7 +4456,9 @@ def cards_costs() -> int:
     decoders' rates (``card_decode_runs``), then ``dp_epoch`` in one
     process and at every training mesh over NCCL that the cards hold (one
     rank and ``CARD_EPOCH``), each replayed against its eager loop in the
-    same ranks and traced on every rank (``card_epoch_times``)."""
+    same ranks and traced on every rank (``card_epoch_times``); and on four
+    cards the overlapped step at 4x1 replayed against its eager loop and
+    timed beside the flat step, every rank traced (``overlap_mesh_runs``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -4109,9 +4476,13 @@ def cards_costs() -> int:
         if cli_main(["gen-rand-net", "-o", init_wts, "--seed",
                      str(SEED)]) != 0:
             raise SystemExit("gen-rand-net failed")
+        train = {"tfx": tfx, "init_wts": init_wts}
         meshes = ((1, 1),) + CARD_EPOCH
-        card_epoch_times(root, {"tfx": tfx, "init_wts": init_wts},
-                         shapes=(None,) + meshes, profile=meshes)
+        card_epoch_times(root, train, shapes=(None,) + meshes,
+                         profile=meshes)
+        if torch.cuda.device_count() >= CARD_OVERLAP:
+            overlap_mesh_runs(root, train, CARD_OVERLAP, ("float32",), True,
+                              "cards")
     return 0
 
 

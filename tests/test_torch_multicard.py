@@ -23,6 +23,12 @@ outlives it), rank k on card k.  Fixtures and checks are
   for bit the eager mesh loop's (weights, velocity, alpha), the timed
   epochs' launches and ``Mesh.traffic`` equal to the byte, every bunch of
   the timed epoch a replay;
+- the overlapped step (``train_chunk_overlap``) at 4x1 on four cards
+  (``chip_smoke.overlap_mesh_runs``): on every rank its replayed bunches
+  bit for bit its eager loop's (``graph=False``), launches and
+  ``Mesh.traffic`` equal to the byte, every bunch of the timed epoch a
+  replay, and a traced window of replayed bunches holding NCCL and GEMM
+  kernels;
 - ``bench/mesh_decode`` on two cards and on four: every form of
   ``Enhancer(mesh=)`` within 1 int16 LSB and the enhanced LPS within rtol
   1e-5, atol 1e-5 of the one-process decode, the int16 streams of
@@ -149,6 +155,21 @@ def test_replayed_mesh_bunches_equal_the_eager_loop(tmp_path, data, model,
         assert (r["rank"], r["data"], r["model"]) == (k, data, model)
         c.against_eager(r, f"{data}x{model} {dtype} rank {k}")
         assert r["bunches_replayed"] == r["bunches"] > 0
+
+
+@pytest.mark.cuda
+def test_overlapped_4x1_replays_its_eager_loop(tmp_path):
+    _need_cards(4)
+    c = _smoke()
+    tfx = c.write_train_fixtures(str(tmp_path), c.SEED)
+    init_wts = str(tmp_path / "init.wts")
+    assert c.cli_main(["gen-rand-net", "-o", init_wts, "--seed",
+                       str(c.SEED)]) == 0
+    launches = c.overlap_mesh_runs(str(tmp_path), {
+        "tfx": tfx, "init_wts": init_wts}, 4, ("float32",), True, "4x1")
+    # Three states of three epochs each on every rank, and the traces.
+    assert (launches["colsum"] == launches["from_sums"] == launches["sgd"]
+            > 4 * 9 * c.ml_bunches(tfx))
 
 
 @pytest.mark.cuda

@@ -28,7 +28,11 @@ The port's twin of the overlap cases of ``tests/test_parallel.py``
 - the collectives: one all-reduce per layer per bunch plus one of the D
   column sums (ML), the flat step's bytes; ``Mesh.all_reduce_sum_async``
   sums bfloat16 (gloo) and two sums can be in flight at once;
-- the refusals of ``tpu_se``: dropout, ``act_dtype``, a model axis > 1.
+- the refusals of ``tpu_se``: dropout, ``act_dtype``, a model axis > 1;
+- ``graph=True`` against ``graph=False`` on the CPU, where both are the
+  eager loop: the same bits.  The replay rule is ``train_chunk``'s
+  (``tests/test_torch_train_graph.py:test_replay_rule``), and the
+  replayed step on a card is held to its eager loop there (``cuda``).
 """
 
 import os
@@ -274,3 +278,24 @@ def test_shard_overlap_args_is_the_reference_layout():
             torch.from_numpy(noisy), torch.from_numpy(clean),
             torch.from_numpy(starts.astype(np.int64)), LR,
             train.TrainHyper(ml=True, **HYPER), mesh=Mesh(0, 2, "cpu", None))
+
+
+@pytest.mark.parametrize("hyper", [{}, BF16_HYPER], ids=["fp32", "bf16"])
+def test_overlap_graph_flag_changes_nothing_on_the_cpu(hyper):
+    noisy, clean, starts, layers = _problem()
+    states = {}
+    for graph in (True, False):
+        states[graph] = train.make_train_state(
+            params_from_numpy(layers, "cpu"))
+        train_chunk_overlap(states[graph], torch.from_numpy(noisy),
+                            torch.from_numpy(clean),
+                            torch.from_numpy(starts.astype(np.int64)), LR,
+                            train.TrainHyper(ml=True, **{**HYPER, **hyper}),
+                            graph=graph)
+    assert states[True]._graph is None
+    for a, b in zip(states[True].model.parameters(),
+                    states[False].model.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(states[True].velocity, states[False].velocity):
+        assert all(torch.equal(a[k], b[k]) for k in ("w", "b"))
+    assert torch.equal(states[True].alpha, states[False].alpha)

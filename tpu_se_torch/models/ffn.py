@@ -121,6 +121,8 @@ def input_dropout(h: torch.Tensor, p: float, generator: torch.Generator,
     of n equal blocks of columns: the mask of the whole bunch at full width
     is drawn from ``generator`` and this block of it is kept, so ranks that
     share the generator's seed draw together what one process draws.
+    Inside a captured training bunch the draw reads the generator's
+    Philox seed and offset when the graph is replayed (``train/step.py``).
     """
     m, width = h.shape
     lo, m_global = (0, m) if rows is None else rows

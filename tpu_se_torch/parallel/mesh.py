@@ -200,8 +200,10 @@ class Mesh:
 
         NCCL: ``torch.distributed.all_reduce(async_op=True)``; ``wait()``
         makes the current stream wait for NCCL's, without blocking the
-        host, so work issued in between runs meanwhile.  bfloat16 is
-        summed as bfloat16.  gloo with a CUDA tensor: ``t`` is copied to a
+        host, so work issued in between runs meanwhile.  Both are stream
+        operations, so a CUDA graph captures them (the overlapped step's
+        replayed bunch): a replay runs the ring on NCCL's stream and joins
+        it where ``wait()`` was called.  bfloat16 is summed as bfloat16.  gloo with a CUDA tensor: ``t`` is copied to a
         pinned host buffer of its own (``slot`` names it: one per sum in
         flight), gloo sums it on the host in its own thread, and ``wait()``
         copies the sum back without blocking the host.  The copy to the
@@ -311,7 +313,7 @@ class PendingSum:
 
     def wait(self) -> torch.Tensor:
         """-> the summed tensor, once the sum has landed in it (on the
-        card: in stream order).  A trace shows the wait as
+        card: in stream order; no host wait, so it can be captured).  A trace shows the wait as
         ``PendingSum.wait``."""
         if self._work is not None:
             with torch.profiler.record_function("PendingSum.wait"):

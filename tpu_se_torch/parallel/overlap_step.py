@@ -28,7 +28,14 @@ The math is the reference gradient chain, ``train_chunk``'s:
 
 In float32 every operation is the one that ``torch.autograd.grad`` runs in
 ``train_chunk`` (``addmm``, ``sigmoid_backward``'s ``g (1 - h) h``,
-``mm``, ``sum``), so at ``mesh=None`` the two steps give the same bits.
+``mm``, ``sum``), so at ``mesh=None`` the two steps give the same bits,
+eager or replayed.
+
+On a card (``mesh=None`` or NCCL) a bunch replays one captured CUDA graph,
+as ``train_chunk``'s does (``train/step.py:run_chunk``, the same capture
+and counters): the per-layer all-reduces are captured with their waits,
+which are stream waits, so inside the graph each ring still runs on
+NCCL's stream beside the earlier layers' backward products.
 
 With ``hyper.compute_dtype = torch.bfloat16`` the rounding follows
 ``tpu_se``'s overlap step, not ``_ReducedLinear``: products take bfloat16
@@ -56,7 +63,7 @@ from tpu_se_torch.models.ffn import _ACTIVATIONS, linear, reduced_product
 from tpu_se_torch.parallel.mesh import PendingSum, shard_train_args
 from tpu_se_torch.train.optim import sgd_momentum_update
 from tpu_se_torch.train.step import (
-    TrainHyper, TrainState, gather_splice, param_layers,
+    TrainHyper, TrainState, gather_splice, param_layers, run_chunk,
 )
 
 
@@ -143,8 +150,8 @@ def _bunch_grads(layers: list[dict], w_cast: list, x: torch.Tensor,
 def train_chunk_overlap(state: TrainState, noisy: torch.Tensor,
                         clean: torch.Tensor, starts: torch.Tensor, lr: float,
                         hyper: TrainHyper, mesh=None,
-                        generator: torch.Generator | None = None
-                        ) -> TrainState:
+                        generator: torch.Generator | None = None,
+                        graph: bool = True) -> TrainState:
     """``train_chunk`` with the backward pass written out and one
     all-reduce per layer, in place; returns ``state``.
 
@@ -154,6 +161,14 @@ def train_chunk_overlap(state: TrainState, noisy: torch.Tensor,
     Raises ``NotImplementedError``, as ``tpu_se`` does, for dropout (a
     ``generator`` included), for ``act_dtype`` and for a model axis of more
     than one rank; use ``train_chunk`` for those.
+
+    ``graph`` follows ``train_chunk``'s rule (``train/step.py:run_chunk``):
+    on a card with ``mesh=None`` or an NCCL mesh each bunch replays one
+    captured CUDA graph, its per-layer all-reduces and their waits inside
+    (each ``PendingSum.wait`` a stream wait, so the rings still run behind
+    the earlier layers' products), bit for bit the eager loop that
+    ``graph=False`` runs; gloo (the host copies of every layer's sum) and
+    the CPU stay eager.
     """
     if hyper.dropout is not None or generator is not None:
         raise NotImplementedError("overlap step does not support dropout")
@@ -173,8 +188,11 @@ def train_chunk_overlap(state: TrainState, noisy: torch.Tensor,
     opt_n = hyper.bunchsize if hyper.grad_scale == "parity" else 1
     lr = float(np.float32(lr))
     layers = param_layers(state.model)
-    alpha = state.alpha
-    for bunch in starts:
+    params = [p for layer in layers for p in (layer["w"], layer["b"])]
+
+    def bunch_step(bunch: torch.Tensor, rate, masks) -> torch.Tensor:
+        """One bunch, in place on the weights and velocity -> its alpha
+        (``train_chunk``'s protocol; ``masks`` is always None here)."""
         # The weights' reduced copies, once per bunch, as train_chunk.
         w_cast = [None if hyper.compute_dtype == torch.float32
                   else layer["w"].to(hyper.compute_dtype)
@@ -182,10 +200,12 @@ def train_chunk_overlap(state: TrainState, noisy: torch.Tensor,
         x = gather_splice(noisy, bunch, hyper.context)
         targ = clean[bunch + hyper.targ_offset]
         grads, alpha = _bunch_grads(layers, w_cast, x, targ, hyper, mesh)
-        sgd_momentum_update(layers, state.velocity, grads, lr,
+        sgd_momentum_update(layers, state.velocity, grads, rate,
                             hyper.momentum, hyper.weightcost, opt_n)
-    state.alpha = alpha
-    return state
+        return alpha
+
+    return run_chunk(state, noisy, clean, starts, lr, hyper, bunch_step,
+                     params, mesh, None, graph, "overlap")
 
 
 def shard_overlap_args(mesh, noisy, clean, starts):

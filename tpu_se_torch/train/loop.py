@@ -189,7 +189,9 @@ def load_device_frames(dataset: PfilePairDataset, device,
 def dropout_generator(seed: int, chunk: int, device) -> torch.Generator:
     """The dropout masks' generator for one chunk of an epoch: seeded from
     the epoch's draw and the chunk index (as JAX folds the chunk index into
-    its key), so a mid-epoch resume draws the same masks."""
+    its key), so a mid-epoch resume draws the same masks.  A new generator
+    per chunk costs no capture on a card: the replayed bunch takes its
+    seed and offset (``train/step.py``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence([seed, chunk])
                         .generate_state(1)[0]))

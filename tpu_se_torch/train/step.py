@@ -3,27 +3,42 @@
 Port of ``tpu_se/train/step.py`` (reference per-bunch loop
 ``BP_GPU.cu:152-185,308-440``).  Where JAX runs the bunches of a chunk
 inside one ``lax.scan``, the port runs them as a Python loop.  On a card
-(one device, or one rank of an NCCL mesh; no dropout) the loop replays one
-captured CUDA graph per bunch; elsewhere, and with ``graph=False``, each
-bunch is its eager launches:
+(one device, or one rank of an NCCL mesh; with or without dropout masks)
+the loop replays one captured CUDA graph per bunch; elsewhere, and with
+``graph=False``, each bunch is its eager launches.  The overlapped step
+(``parallel/overlap_step.py``) replays through the same machinery
+(``run_chunk``):
 
 - The graph holds a whole bunch: the splice gather, the forward pass, the
   GGD kernel, the backward pass and the update (one optimizer kernel,
   ``train/optim.py``), and under an NCCL mesh the bunch's collectives
   (the GGD column sums, the flat gradients, the model axis' sums and
-  gather), which NCCL records into the graph and runs at each replay, as
-  ``jax.jit`` compiles a bunch under its shardings.  It reads the bunch's
+  gather; the overlapped step's per-layer sums), which NCCL records into
+  the graph and runs at each replay, as ``jax.jit`` compiles a bunch under
+  its shardings.  It reads the bunch's
   window starts from a static ``[M]`` buffer, filled by one device copy
   per bunch, and the rate from a 0-dim float32 buffer, so one graph serves
   every epoch's rate; it writes the weights and velocity in place.  The
   replays are bit for bit the eager loop (``graph=False``), which stays as
   the reference.  The graph lives on the ``TrainState`` and is captured
-  again when the frames, M, the hyper-parameters or the parameter and
+  again when the step (flat or overlapped), the frames, M, the
+  hyper-parameters, whether masks are drawn, or the parameter and
   velocity tensors change: a chunk read per call (``device_resident=
   "never"``) captures once per chunk.  A capture follows one eager warm-up
   bunch of the chunk on a side stream, which loads the kernel library,
   cuBLAS and autograd's state; the capture itself runs nothing, so a chunk
   of n bunches trains n bunches.
+- Dropout masks are drawn inside the graph from a generator of its own,
+  registered with it (``CUDAGraph.register_generator_state``): a replay
+  reads that generator's Philox seed and offset when it is launched and
+  advances the offset by what the bunch's draws take, as the eager bunch
+  advances its generator.  The caller's generator is not in the graph
+  (the training loop makes one per chunk): before a chunk's replays its
+  seed and offset are handed to the graph's generator, and after them the
+  caller's offset is set to where the eager loop would have left it.  So
+  bunch k of a chunk draws the masks of eager bunch k, and a chunk's
+  masks cost no capture.  The warm-up bunch draws eagerly from the
+  caller's generator; the capture draws nothing.
 - Under a mesh the warm-up bunch also starts NCCL's communicators (the
   default group's and every axis subgroup's) before the capture, and every
   rank captures at the same bunch: the rule that recaptures reads only
@@ -179,6 +194,9 @@ class _BunchGraph:
     lr: torch.Tensor            # 0-dim float32 rate the graph's update takes
     alpha: torch.Tensor         # the graph's alpha [D], in its memory pool
     counts: tuple               # what one replay adds (read_counts' order)
+    # The generator the graph's masks are drawn from (registered with it),
+    # or None for a graph that draws none.
+    generator: torch.Generator | None = None
 
     def release(self) -> None:
         """Destroy the captured graph (its collectives' process group is
@@ -194,7 +212,8 @@ class TrainState:
     model: FFN | TensorParallelFFN   # trained in place
     velocity: list              # [{"w", "b"}] tensors, like the params
     alpha: torch.Tensor         # last-bunch GGD scale factors [D]
-    # train_chunk's captured bunch on a card (one per state).
+    # The captured bunch of train_chunk or train_chunk_overlap on a card
+    # (one per state: the last step's).
     _graph: _BunchGraph | None = field(default=None, repr=False,
                                        compare=False)
 
@@ -230,16 +249,15 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     noisy/clean: [F, D] normalized frames; starts: [n_bunches, M] int64
     window starts (shuffled), all on one device.  ``lr`` is rounded to
     float32 first, as JAX's ``jnp.float32(lr)``.  ``generator`` (on that
-    device) draws the dropout masks when ``hyper.dropout`` is set.  alpha
-    after the call is the last bunch's.
+    device) draws the dropout masks when ``hyper.dropout`` is set, and
+    leaves the call at the offset its draws took.  alpha after the call
+    is the last bunch's.
 
-    On a card with ``mesh=None`` or an NCCL mesh, and no dropout,
-    ``graph`` replays one captured CUDA graph per bunch (module
-    docstring), bit for bit the eager loop that ``graph=False`` runs; a
-    capture or replay that fails raises.  These stay eager: a gloo mesh
-    (its collectives run on the host), dropout with a generator (the
-    masks' Philox state would have to advance inside the graph), and the
-    CPU (no graphs).
+    On a card with ``mesh=None`` or an NCCL mesh, ``graph`` replays one
+    captured CUDA graph per bunch, masks included (module docstring), bit
+    for bit the eager loop that ``graph=False`` runs; a capture or replay
+    that fails raises.  These stay eager: a gloo mesh (its collectives run
+    on the host) and the CPU (no graphs).
 
     With ``mesh`` (a ``tpu_se_torch.parallel.Mesh``) ``starts`` holds the
     columns ``[n_bunches, M / mesh.data]`` of this rank's data index
@@ -252,6 +270,8 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     """
     opt_n = hyper.bunchsize if hyper.grad_scale == "parity" else 1
     lr = float(np.float32(lr))
+    # Masks are drawn only with a generator: without one, hyper.dropout
+    # trains the plain bunch.
     dropout = hyper.dropout if generator is not None else None
     dropout_rows = None
     if mesh is not None:
@@ -267,13 +287,15 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
     layers = param_layers(state.model)
     params = [p for layer in layers for p in (layer["w"], layer["b"])]
 
-    def bunch_step(bunch: torch.Tensor, rate) -> torch.Tensor:
+    def bunch_step(bunch: torch.Tensor, rate, masks) -> torch.Tensor:
         """One bunch, in place on the weights and velocity -> its alpha.
         ``rate`` is the float32-rounded float or the graph's 0-dim
-        buffer: the update's product rounds to the same float32 bits."""
+        buffer: the update's product rounds to the same float32 bits.
+        ``masks`` is the generator the dropout masks are drawn from (the
+        caller's, or the graph's own), None without masks."""
         x = gather_splice(noisy, bunch, hyper.context)
         targ = clean[bunch + hyper.targ_offset]
-        out = state.model(x, dropout=dropout, generator=generator,
+        out = state.model(x, dropout=dropout, generator=masks,
                           compute_dtype=hyper.compute_dtype,
                           act_dtype=hyper.act_dtype,
                           dropout_rows=dropout_rows)
@@ -289,55 +311,81 @@ def train_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
         return alpha
 
     with torch.enable_grad():
-        if graph and starts.shape[0] and _replays(noisy.device, mesh, dropout):
-            state.alpha = _replay_chunk(state, noisy, clean, starts, lr,
-                                        hyper, bunch_step, params, mesh)
-        else:
-            for bunch in starts:
-                state.alpha = bunch_step(bunch, lr)
+        return run_chunk(state, noisy, clean, starts, lr, hyper, bunch_step,
+                         params, mesh, None if dropout is None else generator,
+                         graph, "flat")
+
+
+def run_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
+              starts: torch.Tensor, lr: float, hyper: TrainHyper, bunch_step,
+              params: list, mesh, generator: torch.Generator | None,
+              graph: bool, step: str) -> TrainState:
+    """Every bunch of ``starts`` through ``bunch_step(bunch, rate, masks)``
+    (-> its alpha), in place; returns ``state`` with the last bunch's
+    alpha.  ``lr`` is float32-rounded; ``generator`` draws the masks (None:
+    no masks).  With ``graph``, on a card without a mesh or under NCCL,
+    the bunches replay the state's graph (``_replay_chunk``); ``step``
+    names the step that ``bunch_step`` runs ("flat", "overlap"), so a
+    state that changes steps captures anew.  Otherwise the eager loop."""
+    if graph and starts.shape[0] and _replays(noisy.device, mesh):
+        state.alpha = _replay_chunk(state, noisy, clean, starts, lr, hyper,
+                                    bunch_step, params, mesh, generator,
+                                    step)
+    else:
+        for bunch in starts:
+            state.alpha = bunch_step(bunch, lr, generator)
     return state
 
 
-def _replays(device: torch.device, mesh, dropout: tuple | None) -> bool:
-    """Whether ``train_chunk(graph=True)`` replays a captured bunch: on a
-    card, without a mesh or under an NCCL one, without dropout masks
-    (``dropout`` is ``hyper.dropout`` when a generator is given, else
-    None)."""
-    return (device.type == "cuda" and dropout is None
-            and (mesh is None or mesh.backend == "nccl"))
+def _replays(device: torch.device, mesh) -> bool:
+    """Whether ``run_chunk(graph=True)`` replays a captured bunch: on a
+    card, without a mesh or under an NCCL one.  Dropout masks do not
+    matter: the graph draws them too."""
+    return device.type == "cuda" and (mesh is None or mesh.backend == "nccl")
 
 
 def _graph_key(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
-               params: list, m: int, hyper: TrainHyper, mesh=None
+               params: list, m: int, hyper: TrainHyper, mesh=None,
+               step: str = "flat", masks: bool = False
                ) -> tuple[tuple, tuple]:
-    """(key, held) of a bunch graph: the objects it reads and writes, by
-    identity and address, with M and ``hyper``; ``held`` keeps them alive
-    beside the graph, so no identity is reused while the key stands.
-    Under a mesh also the mesh, its axis groups and its flat gradient
-    buffer (``Mesh._flat``, outside the graph's pool): a buffer allocated
-    anew means a capture anew, never a replay into freed memory."""
+    """(key, held) of a bunch graph: the step it runs and whether it draws
+    masks (``hyper.dropout`` draws none without a generator), M,
+    ``hyper``, and the objects it reads and writes, by identity and
+    address; ``held`` keeps them alive beside the graph, so no identity
+    is reused while the key stands.  Under a mesh also the mesh and its
+    axis groups, and for the flat step its flat gradient buffer
+    (``Mesh._flat``, outside the graph's pool): a buffer allocated anew
+    means a capture anew, never a replay into freed memory.  The
+    overlapped step reads no such buffer (its sums are in the graph's
+    pool), so a flat step's buffer does not recapture it.  The caller's
+    generator is not in the key (module docstring)."""
     tensors = (noisy, clean, *params,
                *(v for layer in state.velocity for v in layer.values()))
     held = (state.model, *tensors)
     if mesh is not None:
-        tensors += () if mesh._flat is None else (mesh._flat,)
-        held = (*held, mesh, *mesh._groups.values(), mesh._flat)
-    return ((m, hyper, tuple(map(id, held)),
+        held = (*held, mesh, *mesh._groups.values())
+        if step == "flat":
+            tensors += () if mesh._flat is None else (mesh._flat,)
+            held = (*held, mesh._flat)
+    return ((step, masks, m, hyper, tuple(map(id, held)),
              tuple(t.data_ptr() for t in tensors)), held)
 
 
 def _replay_chunk(state: TrainState, noisy: torch.Tensor,
                   clean: torch.Tensor, starts: torch.Tensor, lr: float,
-                  hyper: TrainHyper, bunch_step, params: list, mesh=None
-                  ) -> torch.Tensor:
+                  hyper: TrainHyper, bunch_step, params: list, mesh=None,
+                  generator: torch.Generator | None = None,
+                  step: str = "flat") -> torch.Tensor:
     """Every bunch of ``starts`` as a replay of the state's graph, captured
     first (after one eager bunch) if the state has none for these
-    tensors -> the last bunch's alpha, copied out of the graph's pool."""
+    tensors -> the last bunch's alpha, copied out of the graph's pool.
+    With a ``generator`` the replays draw its masks from its seed and
+    offset, and it leaves at the offset the eager loop leaves it."""
     global bunches_replayed
 
     def key():
         return _graph_key(state, noisy, clean, params, starts.shape[1],
-                          hyper, mesh)
+                          hyper, mesh, step, generator is not None)
 
     g = state._graph
     rest = starts
@@ -345,14 +393,20 @@ def _replay_chunk(state: TrainState, noisy: torch.Tensor,
     traffic = None if mesh is None else mesh.traffic
     with torch.cuda.device(noisy.device):
         if g is None or g.key != key()[0]:
-            g, alpha = _capture(starts[0], lr, bunch_step, key, traffic, g)
+            g, alpha = _capture(starts[0], lr, bunch_step, key, traffic, g,
+                                generator)
             state._graph = g          # the old graph and its pool go
             rest = starts[1:]
         if rest.shape[0]:
             g.lr.fill_(lr)
+            if generator is not None:
+                g.generator.manual_seed(generator.initial_seed())
+                g.generator.set_offset(generator.get_offset())
             for bunch in rest:
                 g.starts.copy_(bunch)
                 g.graph.replay()
+            if generator is not None:
+                generator.set_offset(g.generator.get_offset())
             bunches_replayed += rest.shape[0]
             add_counts(traffic, g.counts, rest.shape[0])
             alpha = g.alpha
@@ -360,7 +414,8 @@ def _replay_chunk(state: TrainState, noisy: torch.Tensor,
 
 
 def _capture(first: torch.Tensor, lr: float, bunch_step, key,
-             traffic: dict | None, old: _BunchGraph | None
+             traffic: dict | None, old: _BunchGraph | None,
+             generator: torch.Generator | None = None
              ) -> tuple[_BunchGraph, torch.Tensor]:
     """Train ``first`` eagerly on a side stream, then capture one bunch on
     it that reads its starts and rate from static buffers -> (the graph,
@@ -368,7 +423,9 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key,
     ``key()`` gives the graph's (key, held), read after the warm-up,
     which allocates a mesh's flat gradient buffer; ``traffic`` is the
     mesh's ``Mesh.traffic`` (None without one).  The capture's mode is
-    ``thread_local`` (module docstring).
+    ``thread_local`` (module docstring).  With a ``generator`` the warm-up
+    draws its masks from it, and the graph draws from a generator of its
+    own, registered with it before the capture.
 
     A state's next graph is captured into its ``old`` one's memory pool
     and on its stream, while the old graph still holds the pool, and the
@@ -386,18 +443,22 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key,
     side = torch.cuda.Stream() if old is None else old.stream
     side.wait_stream(current)
     with torch.cuda.stream(side):
-        alpha = bunch_step(first, lr)
+        alpha = bunch_step(first, lr, generator)
     # Read by the caller on the current stream, freed after it.
     alpha.record_stream(current)
     graph_key, held = key()
     graph = torch.cuda.CUDAGraph()
+    masks = None
+    if generator is not None:
+        masks = torch.Generator(device=first.device)
+        graph.register_generator_state(masks)
     before = read_counts(traffic)
     with torch.cuda.stream(side):
         graph.capture_begin(
             pool=None if old is None else old.graph.pool(),
             capture_error_mode="thread_local")
         try:
-            static_alpha = bunch_step(starts, rate)
+            static_alpha = bunch_step(starts, rate, masks)
         finally:
             graph.capture_end()
     counts = tuple(b - a for a, b in zip(before, read_counts(traffic)))
@@ -405,7 +466,7 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key,
     current.wait_stream(side)
     graphs_captured += 1
     captured = _BunchGraph(graph_key, held, graph, side, starts, rate,
-                           static_alpha, counts)
+                           static_alpha, counts, masks)
     if traffic is not None:
         release_on_shutdown(captured)
     return captured, alpha
