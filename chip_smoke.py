@@ -127,7 +127,24 @@ failing (non-zero exit) at the first fault:
    hop's profile, wall p50/p99 over 300 ``push`` calls, ``push_many``
    hops/s with the float and the int16 wire, and the channels of
    real-time audio that is (a hop is 16 ms at 16 kHz);
-11. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
+11. decode-graph and CV phase (a child process, on the slice phase's
+   fixtures written again): every ``Enhancer`` entry point (``enhance``
+   of the four utterances, ``enhance_batch`` and ``enhance_batch_waves``
+   of them and of the decode cell's 16 x 448 frames, ``enhance_lps``) on
+   its replayed CUDA graph, twice, bit for bit ``graph=False`` at the same
+   padded shape, float32 and bfloat16, blend 0 and ``"auto"``, one LPS
+   launch a call (none for ``enhance_lps``), replays = calls - captures;
+   ``memory_reserved`` before and after the enhance warm-up; ms per call
+   replayed and eager in turns (host clock) for the 1-4 s utterances one
+   at a time and the 16 x 448 batch, the batch's device-only ms (CUDA
+   events), device busy us and records per call (``torch.profiler``); a
+   capture that fails raises and keeps no graph; then the CV pass at full
+   width over a three-batch CV
+   set, replayed against eager over five passes with alpha and the
+   weights changed before each (resident float32 and bfloat16, per chunk
+   float32, and one NCCL rank with ``Mesh.traffic`` equal), bit for bit,
+   one capture, ms per pass of both;
+12. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
    sums, everything else float32), at the same full-width model and
    fixtures; nothing falls back to float32 or to the CPU:
    ``FFN`` on the card against the CPU's formulation (widened operands)
@@ -143,9 +160,10 @@ failing (non-zero exit) at the first fault:
    torch.bfloat16)`` at batch 4 and 16: enhanced LPS against the CPU's
    bfloat16 decode, one LPS kernel launch per batch, and ms per batch
    beside the float32 decode's over 5 repeats; ``StreamingEnhancer(
-   compute_dtype=torch.bfloat16)`` at 1, 8 and 128 streams: 64 hops
-   replayed against eager on the card (bitwise), launches per hop, the
-   network's share and the replayed step's time beside float32's;
+   compute_dtype=torch.bfloat16)`` at 1, 8 and 128 streams, in a child
+   process: 64 hops replayed against eager on the card (bitwise),
+   launches per hop, the network's share and the replayed step's time
+   beside float32's;
    ``train --compute-dtype bfloat16 --epochs 2`` on the card twice
    (byte-identical), at ``--lrate 0.001`` on the card and on the CPU
    (weight changes per layer and CV metrics within the bfloat16
@@ -156,7 +174,7 @@ failing (non-zero exit) at the first fault:
    ``profile_trace``, whose Chrome trace must hold CUDA kernels, one of
    them the GGD kernel (in one of three traces: the tracer now and then
    loses a window's device records);
-12. data-parallel phase, at the training phase's full-width fixtures; the
+13. data-parallel phase, at the training phase's full-width fixtures; the
    ranks are child processes of ``python -m tpu_se_torch train`` (and of
    ``python -m tpu_se_torch.bench.dp_epoch`` for the timings), each
    cluster under its own time limit; a child's unexpected exit code, a
@@ -182,7 +200,7 @@ failing (non-zero exit) at the first fault:
    card, ``--mesh-model 3`` at a hidden width of 2048, NCCL with two ranks
    on one card); ms per bunch for one rank fused, one rank over NCCL and
    two ranks over gloo, with the bytes each collective moves;
-13. tensor-parallel phase, at the same fixtures, ranks as child processes
+14. tensor-parallel phase, at the same fixtures, ranks as child processes
    of ``python -m tpu_se_torch train --mesh-model 2`` sharing the card over
    gloo at ``--lrate 0.001``: a 1 x 2 and a 2 x 2 mesh, each twice; each
    held to the one-process card run (weight changes within 1e-3), its
@@ -192,7 +210,7 @@ failing (non-zero exit) at the first fault:
    data axis' two all-reduces; the model axis' two all-reduces and one
    all-gather; per CV batch one of each; the checkpoint's gathers); ms per
    bunch of both through ``bench/dp_epoch --mesh-model 2``;
-14. decoder-mesh phase: ``bench/mesh_decode`` as two ranks sharing the
+15. decoder-mesh phase: ``bench/mesh_decode`` as two ranks sharing the
    card over gloo -- ``Enhancer(mesh=)`` (``enhance`` plain and with
    ``blend="auto"``, ``enhance_batch``, ``enhance_batch_waves``) of the
    slice phase's four utterances and ``StreamingEnhancer(mesh=)`` of 8
@@ -201,7 +219,7 @@ failing (non-zero exit) at the first fault:
    LSB (bitwise by form reported), enhanced LPS within rtol 1e-5, atol
    1e-5, each rank's LPS launches equal to the one process's and 16 graph
    replays;
-15. cross-card phase: the mesh paths over NCCL, one rank per card, as far
+16. cross-card phase: the mesh paths over NCCL, one rank per card, as far
    as the machine's cards go (one line names each run left out and the
    cards it needs; nothing runs in its place); each card's name and power
    limit; the children of every other phase see card 0 alone, as on a
@@ -229,7 +247,7 @@ failing (non-zero exit) at the first fault:
    step's in turns, and every rank's replayed window traced (the µs NCCL
    kernels run beside GEMM kernels); the launches of these runs join the
    kernel table;
-16. host chunk loader phase (run after the training phase, at its
+17. host chunk loader phase (run after the training phase, at its
    fixtures): compiles ``tpu_se_torch/csrc/chunk_loader.cc`` with the host
    compiler (timed) and loads the library; reads, byte-swaps and
    normalises the training span (noisy + clean) through the library and
@@ -238,7 +256,7 @@ failing (non-zero exit) at the first fault:
    rows by each route, whose ``mlp.2.wts`` must be byte-identical (and is
    compared with the resident run's); epoch samples/s per chunk by both
    routes beside the resident epoch's;
-17. overlapped-step phase (after the data-parallel phase):
+18. overlapped-step phase (after the data-parallel phase):
    ``train_chunk_overlap`` replayed and eager and ``train_chunk`` replayed
    at ``mesh=None`` on the card, three epochs each from the same weights
    (the replayed overlapped state bitwise its eager loop's and the flat
@@ -262,7 +280,7 @@ failing (non-zero exit) at the first fault:
    (``check_replayed_profile``); the us by which NCCL kernels overlap
    GEMM kernels on the device, and where the host's time goes (the host
    ops of most self time per bunch);
-18. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
+19. examples phase (last): ``tpu_se_torch.examples.serve_streaming`` on
    the slice phase's longest utterance with its model (graph replays = hops
    and two eager LPS calls per enhancer; the single stream as long as the
    batch decode), and ``tpu_se_torch.examples.demo_pipeline`` at full
@@ -270,14 +288,14 @@ failing (non-zero exit) at the first fault:
    corpus (``bench/fixtures.py:write_demo_corpus``): finite SegSNR, LSD
    and STOI for the held-out condition, one LPS launch per wav and one GGD
    launch per ML bunch, its 40 ``.wts`` deleted after;
-19. benches phase: each measurement module (``tpu_se_torch/bench/``
+20. benches phase: each measurement module (``tpu_se_torch/bench/``
    ``train`` in float32 and bfloat16, ``decode``, ``stream``, ``loader``,
    ``build``, ``scaling`` at one rank) once at short settings
    (``BENCH_RUNS``), each module's ``main`` in turn in one child process:
    each exits 0 and prints its record, the same as its ``--out`` file,
    headed by its metric, on this card, with every one of its own checks
    held; its kernel launches join the table;
-20. prints the kernel table as JSON (each kernel's launches summed over
+21. prints the kernel table as JSON (each kernel's launches summed over
    every path that ran it; its device time, its plain version's and its
    bound at the main path's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -321,9 +339,11 @@ from tpu_se_torch.examples import (  # noqa: E402
     demo_pipeline, serve_streaming,
 )
 from tpu_se_torch.infer import Enhancer, StreamingEnhancer  # noqa: E402
+from tpu_se_torch.infer import decode as decode_mod  # noqa: E402
 from tpu_se_torch.infer import streaming  # noqa: E402
 from tpu_se_torch.io import (  # noqa: E402
-    native, read_norm, read_pfile_meta, read_wav, read_wts, write_wav,
+    native, read_norm, read_pfile_meta, read_wav, read_wts, write_norm,
+    write_pfile, write_wav,
 )
 from tpu_se_torch.models import init_params, params_from_numpy  # noqa: E402
 from tpu_se_torch.models.ffn import (  # noqa: E402
@@ -341,16 +361,16 @@ from tpu_se_torch.ops._build import (  # noqa: E402
 from tpu_se_torch.bench.mesh_decode import decode_all  # noqa: E402
 from tpu_se_torch.parallel import (  # noqa: E402
     MeshConfig, initialize_distributed, make_mesh, param_shardings,
-    shutdown_distributed, sync_processes,
+    shard_params, shutdown_distributed, sync_processes,
 )
 from tpu_se_torch.parallel.mesh import free_port  # noqa: E402
 from tpu_se_torch.parallel.overlap_step import (  # noqa: E402
     train_chunk_overlap,
 )
 from tpu_se_torch.train import (  # noqa: E402
-    CV_BATCH, TrainConfig, TrainHyper, load_checkpoint, load_device_frames,
-    make_train_state, run_training, train_chunk,
-    train_one_epoch,
+    CV_BATCH, TrainConfig, TrainHyper, evaluate_cv, load_checkpoint,
+    load_device_frames, make_train_state, param_layers, run_training,
+    train_chunk, train_one_epoch,
 )
 from tpu_se_torch.train import loop as loop_mod  # noqa: E402
 from tpu_se_torch.train import step as step_mod  # noqa: E402
@@ -452,6 +472,18 @@ GRAPH_DROPOUT = (0.1, 0.1)
 DROPOUT_CHUNKS = ((BUNCH, "float32", 100), (BIG_BUNCH, "bfloat16", 20))
 GRAPH_MASK_SEEDS = (7, 8)
 TRACE_WINDOWS = 3         # traces of one bunch before a lost record fails
+# The decode-graph phase: the decode cell's batch (utterances x frames),
+# passes over the slice phase's four 1-4 s utterances a turn, turns of
+# replayed and eager timing, calls per profiled window.  The CV phase: the
+# sentences of its synthetic CV set (200-330 frames each: three batches of
+# CV_BATCH windows), its per-chunk cache, and turns of timing.
+DGRAPH_BATCH = (16, 448)
+DGRAPH_PASSES = 5
+DGRAPH_TURNS = 5
+DGRAPH_PROFILED = 10
+CV_SET_SENTS = 40
+CV_SET_CACHE = 4096
+CV_TURNS = 5
 EPOCHS = 2
 # name -> (with --clean-scp, extra decode flags)
 RUNS = {
@@ -542,6 +574,17 @@ def kernel_phase(dev, decode_rows: list[int]) -> dict:
               f"bound {bound_ms * 1e3:.2f} us ({bound_by}), "
               f"{bound_ms / dev_ms:.0%} of it reached")
     return {"max_abs_err": max_err, "times": times}
+
+
+def padded_rows(ts: list[int]) -> list[int]:
+    """The LPS kernel's T on the decode's main path for utterances of
+    ``ts`` frames: each utterance's frames padded to its bucket
+    (``enhance``), then the whole batch's padded rows (``enhance_batch``),
+    last."""
+    bucket = decode_mod.DECODE_PAD_BUCKET
+    pads = [-(-t // bucket) * bucket for t in ts]
+    b_pad = -(-len(ts) // decode_mod.BATCH_BUCKET) * decode_mod.BATCH_BUCKET
+    return pads + [b_pad * max(pads)]
 
 
 def lps_bound_ms(t: int, length: int, n_bins: int) -> tuple[float, str]:
@@ -1439,6 +1482,346 @@ def train_graph_child(root: str) -> tuple[int, int]:
         raise SystemExit(f"train graph: {text[-3000:]}")
     for line in lines:
         if line.startswith("tgraph  "):
+            print(line)
+    return launches[0]
+
+
+def decode_graph_phase(dev, fx: dict) -> None:
+    """The decoder's captured graphs at full width: every entry point
+    (``enhance`` of the four utterances, ``enhance_batch`` and
+    ``enhance_batch_waves`` of them, ``enhance_batch_waves`` of the decode
+    cell's 16 x 448 frames, ``enhance_lps``) replayed twice (the first call
+    is the eager run before the capture) against ``Enhancer(graph=False)``,
+    bit for bit, float32 and bfloat16, blend 0 and ``"auto"``: one LPS
+    launch a call (none in ``enhance_lps``, which starts from an LPS),
+    replays = calls - captures.  Then ``memory_reserved``
+    before and after the enhance cell's warm-up (its four T buckets) and
+    the batch; ms per call by the host clock, replayed and eager in turns,
+    for the 1-4 s utterances one at a time and the 16 x 448 batch; the
+    batch's device-only ms by CUDA events (``decode_waves_tensor``, inputs
+    on the card); device busy us and records per call
+    (``torch.profiler``)."""
+    t0 = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(SEED)
+    b, t = DGRAPH_BATCH
+    batch = [(rng.standard_normal((t + 1) * SHIFT) * 3000).astype(np.int16)
+             for _ in range(b)]
+    waves = fx["waves"]
+    lps = [analysis.wav_to_lps(w, device="cpu") for w in waves]
+    # (name, calls, LPS kernel launches, the calls): enhance_lps starts
+    # from an LPS, so its program launches no LPS kernel.
+    calls = (
+        ("enhance", len(waves), len(waves),
+         lambda e: [x for w in waves for x in e.enhance(w)]),
+        ("enhance_batch", 1, 1,
+         lambda e: [x for o in e.enhance_batch(waves) for x in o]),
+        ("enhance_batch_waves", 1, 1,
+         lambda e: e.enhance_batch_waves(waves)),
+        (f"enhance_batch_waves {b}x{t}", 1, 1,
+         lambda e: e.enhance_batch_waves(batch)),
+        ("enhance_lps", len(lps), 0,
+         lambda e: [e.enhance_lps(x) for x in lps]))
+    n_calls = sum(n for _, n, _, _ in calls)
+    n_lps = sum(n for _, _, n, _ in calls)
+
+    def counts():
+        torch.cuda.synchronize()
+        return np.array([lps_kernel.launches, decode_mod.decodes_replayed,
+                         decode_mod.decode_graphs_captured])
+
+    for dtype in ("float32", "bfloat16"):
+        for blend in (0.0, "auto"):
+            kw = dict(device=dev, compute_dtype=dtype, blend=blend)
+            replayed = Enhancer(fx["wts"], fx["norm"], **kw)
+            eager = Enhancer(fx["wts"], fx["norm"], graph=False, **kw)
+            want = {name: call(eager) for name, _, _, call in calls}
+            before = counts()
+            for _ in range(2):
+                for name, _, _, call in calls:
+                    got = call(replayed)
+                    if len(got) != len(want[name]) or not all(
+                            np.array_equal(g, w)
+                            for g, w in zip(got, want[name])):
+                        raise SystemExit(f"decode graph {dtype} blend "
+                                         f"{blend}: {name} replayed is not "
+                                         "graph=False's")
+            lps_n, replays, captures = counts() - before
+            print(f"dgraph  {dtype} blend {blend}: {n_calls} calls x 2 "
+                  f"({', '.join(n for n, _, _, _ in calls)}) bit for bit "
+                  f"graph=False's; {captures} captures, {replays} replays, "
+                  f"{lps_n} LPS launches")
+            if (lps_n != 2 * n_lps or replays + captures != 2 * n_calls
+                    or captures != len(replayed._graphs)):
+                raise SystemExit(f"decode graph {dtype} blend {blend}: "
+                                 f"{lps_n} LPS launches, {replays} replays, "
+                                 f"{captures} captures for {2 * n_calls} "
+                                 f"calls, {2 * n_lps} of them with an LPS")
+
+    enh = {"replayed": Enhancer(fx["wts"], fx["norm"], device=dev),
+           "eager": Enhancer(fx["wts"], fx["norm"], device=dev,
+                             graph=False)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = [torch.cuda.memory_reserved()]
+    for w in waves:
+        enh["replayed"].enhance(w)
+    torch.cuda.synchronize()
+    reserved.append(torch.cuda.memory_reserved())
+    enh["replayed"].enhance_batch_waves(batch)
+    torch.cuda.synchronize()
+    reserved.append(torch.cuda.memory_reserved())
+    print(f"dgraph  memory_reserved {reserved[0] / 2**20:.1f} MiB before, "
+          f"{reserved[1] / 2**20:.1f} after the enhance warm-up "
+          f"({len(enh['replayed']._graphs)} graphs: its T buckets), "
+          f"{reserved[2] / 2**20:.1f} after the {b}x{t} batch's capture; "
+          f"{card}")
+    for w in waves:
+        enh["eager"].enhance(w)
+    enh["eager"].enhance_batch_waves(batch)
+    ms = {(kind, mode): [] for kind in ("enhance", "batch")
+          for mode in enh}
+
+    def wall_ms(fn) -> float:
+        t1 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t1) * 1e3
+
+    for turn in range(DGRAPH_TURNS):
+        order = ("replayed", "eager") if turn % 2 == 0 else ("eager",
+                                                             "replayed")
+        for mode in order:
+            e = enh[mode]
+            ms[("enhance", mode)].append(float(np.median([
+                wall_ms(lambda: e.enhance(w))
+                for _ in range(DGRAPH_PASSES) for w in waves])))
+            ms[("batch", mode)].append(float(np.median([
+                wall_ms(lambda: e.enhance_batch_waves(batch))
+                for _ in range(DGRAPH_PASSES)])))
+    for kind, label in (("enhance", "enhance, 1-4 s utterances one at a "
+                         "time"),
+                        ("batch", f"enhance_batch_waves, {b} x {t} "
+                         "frames")):
+        r, e = ms[(kind, "replayed")], ms[(kind, "eager")]
+        print(f"dgraph  {label}: ms per call (median of a turn, "
+              f"{DGRAPH_TURNS} turns, host clock) replayed "
+              f"{', '.join(f'{x:.4f}' for x in r)}; eager "
+              f"{', '.join(f'{x:.4f}' for x in e)}; eager / replayed "
+              f"{min(e) / max(r):.2f}-{max(e) / min(r):.2f}x; {card}")
+    x, n_valid, frames = pad_batch(batch, dev)
+    device_ms = {mode: [time_ms(lambda: e.decode_waves_tensor(x, n_valid),
+                                iters=20) for _ in range(3)]
+                 for mode, e in enh.items()}
+    print(f"dgraph  decode_waves_tensor {b} x {t}, inputs on the card "
+          f"(CUDA events, 20 calls, 3 repeats): replayed "
+          f"{', '.join(f'{v:.4f}' for v in device_ms['replayed'])} ms, "
+          f"eager {', '.join(f'{v:.4f}' for v in device_ms['eager'])} ms "
+          f"({frames} frames)")
+    for mode, e in enh.items():
+        for label, fn in (("enhance 2 s", lambda: e.enhance(waves[1])),
+                          (f"batch {b}x{t}",
+                           lambda: e.enhance_batch_waves(batch))):
+            busy, records, kernels = device_profile(fn, DGRAPH_PROFILED)
+            top = ", ".join(f"{k[:40]} {us:.1f}" for k, us, _ in kernels[:3])
+            print(f"dgraph  {mode} {label}: device busy {busy:.1f} us, "
+                  f"{records:.1f} device records a call (torch.profiler, "
+                  f"{DGRAPH_PROFILED} calls); top: {top}")
+    print(f"dgraph  decode-graph phase wall time "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def capture_failure_check(dev, fx: dict) -> None:
+    """A decode program that cannot be captured (it reads ``n_valid`` on
+    the host) raises at its first call, and no graph is kept; with the
+    program restored the next call captures and replays as usual."""
+    real = decode_mod._decode_core
+
+    def syncs(model, frames, *args):
+        args[2].tolist()
+        return real(model, frames, *args)
+
+    enh = Enhancer(fx["wts"], fx["norm"], device=dev)
+    decode_mod._decode_core = syncs
+    try:
+        enh.enhance(fx["waves"][0])
+    except RuntimeError as exc:
+        error = str(exc).strip().splitlines()[0][:120]
+    else:
+        raise SystemExit("decode graph: a capture that syncs did not raise")
+    finally:
+        decode_mod._decode_core = real
+    if enh._graphs:
+        raise SystemExit("decode graph: a failed capture kept a graph")
+    want = Enhancer(fx["wts"], fx["norm"], device=dev,
+                    graph=False).enhance(fx["waves"][0])[0]
+    for _ in range(2):
+        if not np.array_equal(enh.enhance(fx["waves"][0])[0], want):
+            raise SystemExit("decode graph: after a failed capture the "
+                             "decode is not graph=False's")
+    print(f"dgraph  a capture that reads n_valid on the host raises "
+          f"RuntimeError ({error}); no graph kept; the program restored, "
+          f"the next calls capture and replay, bit for bit graph=False's")
+
+
+def cv_set(root: str) -> tuple:
+    """A seeded CV pfile pair of ``CV_SET_SENTS`` sentences of 200-330
+    frames and its ``.norm`` -> the three paths."""
+    rng = np.random.default_rng(SEED)
+    noisy = [(rng.normal(size=(n, 257)) * 2 + 3).astype(np.float32)
+             for n in rng.integers(200, 330, size=CV_SET_SENTS)]
+    clean = [(x * 0.8 + rng.normal(scale=0.3, size=x.shape)
+              ).astype(np.float32) for x in noisy]
+    paths = tuple(os.path.join(root, name) for name in
+                  ("cv_noisy.pfile", "cv_clean.pfile", "cv.norm"))
+    write_pfile(paths[0], noisy)
+    write_pfile(paths[1], clean)
+    frames = np.concatenate(noisy)
+    write_norm(paths[2], frames.mean(0), 1.0 / frames.std(0))
+    return paths
+
+
+def cv_turns(states: dict, ds, hyper, frames, dev, turns: int, mesh=None
+             ) -> tuple[dict, dict]:
+    """``turns`` CV passes of each state of ``{"replayed": .., "eager":
+    ..}`` in alternating order, alpha (a new tensor) and the weights (in
+    place) changed alike before each turn; every turn's metrics equal or
+    the smoke fails -> (ms per pass of each, host clock; (replays,
+    captures) of the replayed state over all turns)."""
+    ms = {mode: [] for mode in states}
+    done = (step_mod.cv_batches_replayed, step_mod.cv_graphs_captured)
+    traffic = None if mesh is None else mesh.traffic
+    for turn in range(turns):
+        got, moved = {}, {}
+        for state in states.values():
+            state.alpha = torch.linspace(0.6 + 0.01 * turn, 1.4, 257,
+                                         device=dev)
+            with torch.no_grad():
+                for layer in param_layers(state.model):
+                    layer["w"].mul_(1.0 + 1e-3 * turn)
+        order = list(states) if turn % 2 == 0 else list(states)[::-1]
+        for mode in order:
+            before = step_mod.read_counts(traffic)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got[mode] = evaluate_cv(states[mode], ds, hyper, dev, frames,
+                                    graph=mode == "replayed")
+            ms[mode].append((time.perf_counter() - t1) * 1e3)
+            moved[mode] = [b - a for a, b in
+                           zip(before, step_mod.read_counts(traffic))]
+        if got["replayed"] != got["eager"] or (moved["replayed"]
+                                               != moved["eager"]):
+            raise SystemExit(f"CV pass turn {turn}: replayed {got['replayed']}"
+                             f" {moved['replayed']}, eager {got['eager']} "
+                             f"{moved['eager']}")
+    return ms, (step_mod.cv_batches_replayed - done[0],
+                step_mod.cv_graphs_captured - done[1])
+
+
+def cv_phase(dev, root: str) -> None:
+    """The CV pass at full width on a seeded CV set of three batches:
+    replayed against ``graph=False`` from the same weights over
+    ``CV_TURNS`` passes, alpha and the weights changed before each, bit
+    for bit (the three sums, hence every metric), one capture, every
+    later batch a replay; resident (float32 and bfloat16) and per chunk;
+    then one NCCL rank (a 1x1 group joined here, the model a
+    ``TensorParallelFFN``, whose layout splits nothing at a model axis of
+    one), ``Mesh.traffic`` equal too (each pass's counts are compared in
+    ``cv_turns``) and the graph released when the group goes.  ms per CV
+    pass of both, in turns."""
+    t0 = time.perf_counter()
+    card = card_line()
+    paths = cv_set(root)
+    layers = init_params(SEED, DEFAULT_LAYERSIZES)
+    runs = (("resident", "float32", 102400), ("resident", "bfloat16", 102400),
+            ("per-chunk", "float32", CV_SET_CACHE))
+    for mode, dtype, cache in runs:
+        ds = PfilePairDataset(*paths, (0, CV_SET_SENTS - 1), cache)
+        frames = load_device_frames(ds, dev) if mode == "resident" else None
+        batches = sum(-(-len(ds.chunk(i).starts if frames is None
+                             else ds.chunk_starts(i)) // CV_BATCH)
+                      for i in range(ds.n_chunks))
+        states = {m: make_train_state(params_from_numpy(layers, dev))
+                  for m in ("replayed", "eager")}
+        ms, (replays, captures) = cv_turns(
+            states, ds, TrainHyper(compute_dtype=dtype), frames, dev,
+            CV_TURNS)
+        if (replays, captures) != (CV_TURNS * batches - 1, 1):
+            raise SystemExit(f"CV pass {mode} {dtype}: {replays} replays, "
+                             f"{captures} captures over {CV_TURNS} passes of "
+                             f"{batches} batches")
+        print(f"cvgraph one device, {mode}, {dtype}, {batches} batches of "
+              f"{CV_BATCH} ({ds.n_chunks} chunks): replayed bit for bit "
+              f"eager over {CV_TURNS} passes (alpha and weights changed "
+              f"before each), {captures} capture, {replays} replays; ms per "
+              f"pass replayed {', '.join(f'{v:.3f}' for v in ms['replayed'])}"
+              f", eager {', '.join(f'{v:.3f}' for v in ms['eager'])}; {card}")
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, None, "cuda")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        ds = PfilePairDataset(*paths, (0, CV_SET_SENTS - 1), 102400)
+        frames = load_device_frames(ds, mesh.device, mesh)
+        batches = -(-len(ds.chunk_starts(0)) // CV_BATCH)
+        states = {m: make_train_state(shard_params(layers, mesh))
+                  for m in ("replayed", "eager")}
+        before = step_mod.read_counts(mesh.traffic)
+        ms, (replays, captures) = cv_turns(states, ds, TrainHyper(), frames,
+                                           mesh.device, CV_TURNS, mesh)
+        moved = [b - a for a, b in
+                 zip(before, step_mod.read_counts(mesh.traffic))]
+        graph = states["replayed"]._cv_graph
+        if (replays, captures) != (CV_TURNS * batches - 1, 1):
+            raise SystemExit(f"CV pass, one NCCL rank: {replays} replays, "
+                             f"{captures} captures")
+    finally:
+        shutdown_distributed()
+    if graph.key is not None:
+        raise SystemExit("CV pass, one NCCL rank: the graph outlived its "
+                         "group")
+    print(f"cvgraph one NCCL rank (1x1, TensorParallelFFN), resident, "
+          f"float32, {batches} batches: replayed bit for bit eager over "
+          f"{CV_TURNS} passes, Mesh.traffic equal (both passes together: "
+          f"{moved}), "
+          f"{captures} capture, {replays} replays, released at shutdown; ms "
+          f"per pass replayed {', '.join(f'{v:.3f}' for v in ms['replayed'])}"
+          f", eager {', '.join(f'{v:.3f}' for v in ms['eager'])}; {card}")
+    print(f"cvgraph CV phase wall time {time.perf_counter() - t0:.2f} s")
+
+
+GRAPHS_CHILD = "import sys, chip_smoke; chip_smoke.graphs_child(sys.argv[1])"
+
+
+def graphs_child(root: str) -> None:
+    """``decode_graph_phase``, ``capture_failure_check`` and ``cv_phase``
+    in a process of their own (a failed capture stays out of the smoke's
+    process; the CV phase joins a process group), on the slice phase's
+    fixtures written again under ``root``; the last line holds its LPS
+    launches."""
+    dev = torch.device("cuda")
+    load_library()
+    os.makedirs(root, exist_ok=True)
+    fx = write_fixtures(root)
+    lps_kernel.launches = 0
+    decode_graph_phase(dev, fx)
+    capture_failure_check(dev, fx)
+    cv_phase(dev, root)
+    torch.cuda.synchronize()
+    print("graphs-launches", lps_kernel.launches)
+
+
+def graphs_phase(root: str) -> int:
+    """``graphs_child`` in a child process on the card, its lines printed
+    here -> its LPS kernel launches."""
+    os.makedirs(root, exist_ok=True)
+    text, = wait_ranks([start_rank(["-u", "-c", GRAPHS_CHILD, root],
+                                   os.path.join(root, "graphs.log"))],
+                       "decode graph and CV")
+    lines = text.splitlines()
+    launches = [int(line.split()[1]) for line in lines
+                if line.startswith("graphs-launches ")]
+    if len(launches) != 1:
+        raise SystemExit(f"decode graph and CV: {text[-3000:]}")
+    for line in lines:
+        if line.startswith(("dgraph  ", "cvgraph ")):
             print(line)
     return launches[0]
 
@@ -2447,12 +2830,49 @@ def bf16_phase(dev, root: str, fx: dict, train: dict, fp32_hops: dict
     os.makedirs(root)
     bf16_forward(dev, fx)
     lps_launches = bf16_decode(dev, fx)
-    lps_launches += bf16_stream(fx, fp32_hops)
+    lps_launches += bf16_stream_child(root, fx, fp32_hops)
     ggd_launches = bf16_train(dev, root, train["tfx"], train["init_wts"])
     bf16_extras(dev, root, fx, train["tfx"], train["init_wts"])
     print(f"bf16    bfloat16 phase wall time: "
           f"{time.perf_counter() - t0:.2f} s")
     return {"lps_launches": lps_launches, "ggd_launches": ggd_launches}
+
+
+BF16_STREAM_CHILD = """
+import json, sys
+import chip_smoke
+from tpu_se_torch.io import read_wav
+a = json.loads(sys.argv[1])
+fx = {"wts": a["wts"], "norm": a["norm"],
+      "waves": [read_wav(p)[0] for p in a["waves"]]}
+hops = {int(n): v for n, v in a["fp32_hops"].items()}
+print("bf16s-replays", chip_smoke.bf16_stream(fx, hops))
+"""
+
+
+def bf16_stream_child(root: str, fx: dict, fp32_hops: dict) -> int:
+    """``bf16_stream`` in a child process on the card, its lines printed
+    here -> its graph replays.  In this process, after the phases before
+    it, every trace of a replayed bfloat16 hop came back torn (two or
+    three kernels' counts not a multiple of the window's 10 hops, in five
+    windows of five, twice; ROADMAP E6); a process of its own traces it
+    whole, as the train-graph phase's does."""
+    with open(fx["scp"]) as f:
+        paths = f.read().split()
+    arg = json.dumps({"wts": fx["wts"], "norm": fx["norm"], "waves": paths,
+                      "fp32_hops": fp32_hops})
+    text, = wait_ranks([start_rank(["-u", "-c", BF16_STREAM_CHILD, arg],
+                                   os.path.join(root, "bf16_stream.log"))],
+                       "bfloat16 streams")
+    lines = text.splitlines()
+    replays = [int(line.split()[1]) for line in lines
+               if line.startswith("bf16s-replays ")]
+    if len(replays) != 1:
+        raise SystemExit(f"bfloat16 streams: {text[-3000:]}")
+    for line in lines:
+        if line.startswith(("bf16    ", "stream  ")):
+            print(line)
+    return replays[0]
 
 
 def split_bound_ms(m: int, d: int) -> tuple[float, float]:
@@ -2970,7 +3390,8 @@ def tp_want(tfx: dict, init_wts: str, data: int, model: int, k: int,
     (data > 1 only); the model axis sums layer 1's partial z and layer 2's
     input gradient ([M/D, width] float32 each) and gathers layer 2's
     columns ([M/D, width/model] from each rank); each CV batch runs the
-    sharded forward of all its rows (1 sum, 1 gather), and at each epoch's
+    sharded forward of its ``CV_BATCH`` rows, the last batch of a chunk
+    padded as ``tpu_se`` pads it (1 sum, 1 gather), and at each epoch's
     end the ranks of data index 0 gather every split tensor for rank 0 to
     write."""
     bunches = ml_bunches(tfx) * EPOCHS
@@ -2978,7 +3399,7 @@ def tp_want(tfx: dict, init_wts: str, data: int, model: int, k: int,
     floats, n_split, split_floats = shard_floats(init_wts, model)
     width = read_wts(init_wts)[1]["w"].shape[1]
     rows = bunches * BUNCH // data
-    cv_rows = sum(cv_windows(tfx)) * EPOCHS
+    cv_rows = cv * CV_BATCH           # every CV batch padded to CV_BATCH
     writer = k < model
     return {"colsum": bunches, "from_sums": bunches, "sgd": bunches,
             "calls": 2 * bunches if data > 1 else 0,
@@ -3224,12 +3645,20 @@ def mesh_decode_phase(root: str, fx: dict) -> tuple[int, dict]:
            for k in (0, 1)]
     worst_lsb, worst_lps, bitwise = hold_decode(got, one, "decoder mesh")
     # Where a form is not bitwise: one process given rank 0's rows of the
-    # fast path's padded batch alone computes rank 0's bits, so the
-    # difference is the row count of the products, not the mesh.
-    batch, n_valid, _ = pad_batch(fx["waves"], "cuda")
-    per = -(-len(fx["waves"]) // 2)
+    # fast path's padded batch alone (its B and T buckets, the rank's
+    # share of the rows, the fast path's program run on them as a rank
+    # runs it) computes rank 0's bits, so the difference is the row count
+    # of the products, not the mesh.
     enh = Enhancer(fx["wts"], fx["norm"], device="cuda")
-    block = enh.decode_waves_tensor(batch[:per], n_valid[:per]).cpu().numpy()
+    batch, n_valid, _ = pad_batch(fx["waves"], "cpu")
+    b_pad, t_pad = enh._padded_shape(len(fx["waves"]), int(n_valid.max()),
+                                     batch=True)
+    per = b_pad // 2
+    mine = torch.zeros((per, (t_pad + 1) * SHIFT), dtype=torch.int16)
+    mine[:, :batch.shape[1]] = batch[:per]
+    with torch.inference_mode():
+        (block,) = enh._waves_core(mine.cuda(), n_valid[:per].cuda())
+    block = block.cpu().numpy()
     tail = enh.frame_length - enh.frame_shift
     same_block = all(np.array_equal(
         block[i, :int(n_valid[i]) * enh.frame_shift + tail],
@@ -4356,8 +4785,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         fx = write_fixtures(root)
-        ts = [len(w) // SHIFT - 1 for w in fx["waves"]]
-        kern = kernel_phase(dev, ts + [len(ts) * max(ts)])
+        rows = padded_rows([len(w) // SHIFT - 1 for w in fx["waves"]])
+        kern = kernel_phase(dev, rows)
         launches = slice_phase(root, fx)
         decode_fps(dev, fx)
         ggd = ggd_phase(dev)
@@ -4368,6 +4797,7 @@ def main() -> int:
         pipe = pipeline_phase(os.path.join(root, "pipeline"),
                               train["quiet"])
         stream_launches, fp32_hops = stream_phase(root, fx)
+        graphs_lps = graphs_phase(os.path.join(root, "graphs"))
         bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
                           fp32_hops)
         dp = dp_phase(dev, os.path.join(root, "dp"), train)
@@ -4380,13 +4810,13 @@ def main() -> int:
         benches = benches_phase(os.path.join(root, "benches"))
 
     # Launches: over the decode, streaming (graph replays included),
-    # pipeline, bfloat16, decoder-mesh, cross-card, example and bench
+    # decode-graph (each replay counted once), pipeline, bfloat16, decoder-mesh, cross-card, example and bench
     # paths; over the training, pipeline, bfloat16, overlapped-step (at
     # mesh=None and the one-process references), cross-card (dp_epoch's one
     # process), example and bench paths; the split kernels' over the
     # data-parallel, overlapped-step, tensor-parallel, cross-card and
     # scaling bench paths.  Device time (CUDA-graph replay) at the main path's
-    # shapes: the batched decode's rows, the parity bunch.  The split entry
+    # shapes: the batched decode's padded rows, the parity bunch.  The split entry
     # points' launches are the child ranks' own counts (one rank over NCCL,
     # two ranks over gloo twice), their times those of a bunch's 128 rows
     # on one rank.  The optimizer kernel's launches are one per trained
@@ -4403,10 +4833,10 @@ def main() -> int:
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": (launches + stream_launches + pipe["lps_launches"]
-                     + bf16["lps_launches"] + mesh_lps + cards["lps"]
-                     + examples["lps"] + benches["lps"]),
+                     + graphs_lps + bf16["lps_launches"] + mesh_lps
+                     + cards["lps"] + examples["lps"] + benches["lps"]),
         "max_abs_err": kern["max_abs_err"],
-        **kern["times"][len(ts) * max(ts)], "library_ms": None}, {
+        **kern["times"][rows[-1]], "library_ms": None}, {
         "name": "ggd_output_grad", "route": "cuda",
         "source": "tpu_se_torch/csrc/ggd_kernel.cu",
         "replaces": "tpu_se/ops/ggd_kernel.py:50",

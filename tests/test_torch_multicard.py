@@ -204,3 +204,48 @@ def test_mesh_decode_matches_one_process(tmp_path, n):
     assert lsb <= 1
     assert bitwise["stream"]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_one_nccl_rank_replays_the_cv_pass(tmp_path, compute_dtype):
+    """The CV pass on one NCCL rank (a 1x1 group joined in this process,
+    the model a ``TensorParallelFFN``; at a model axis of one its layout
+    splits nothing, so its forward sends nothing): replayed bit for bit
+    the eager pass over two passes, alpha and the weights changed before
+    each, ``Mesh.traffic`` equal to the byte, one capture; the graph is
+    released when the group goes."""
+    _need_cards(1)
+    from test_torch_train_graph import NARROW, cv_problem, cv_turns
+    from tpu_se_torch.data import PfilePairDataset
+    from tpu_se_torch.models import init_params
+    from tpu_se_torch.parallel import (
+        initialize_distributed, make_mesh, shard_params, shutdown_distributed,
+    )
+    from tpu_se_torch.parallel.mesh import free_port
+    from tpu_se_torch.train import TrainHyper, make_train_state
+    from tpu_se_torch.train.loop import CV_BATCH, load_device_frames
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, None, "cuda")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        ds = PfilePairDataset(*cv_problem(tmp_path), (4, 23), 102400)
+        frames = load_device_frames(ds, mesh.device, mesh)
+        batches = -(-len(ds.chunk_starts(0)) // CV_BATCH)
+        layers = init_params(5, NARROW)
+        states = {g: make_train_state(shard_params(layers, mesh))
+                  for g in (True, False)}
+        metrics, moved = cv_turns(
+            states, ds, TrainHyper(beta=0.9, compute_dtype=compute_dtype),
+            frames, mesh.device, mesh=mesh)
+        for turn in metrics:
+            assert turn[True] == turn[False]
+        assert [m[True][:2] for m in moved] == [(batches - 1, 1),
+                                                (batches, 0)]
+        for turn in moved:
+            assert turn[True][2] == turn[False][2]
+        graph = states[True]._cv_graph
+        assert graph.key is not None
+    finally:
+        shutdown_distributed()
+    assert graph.key is None

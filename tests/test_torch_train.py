@@ -608,7 +608,8 @@ def test_cv_bf16_matches_jax():
     model = params_from_numpy(layers, "cpu")
     got = train.cv_chunk_metrics(
         model, torch.from_numpy(noisy), torch.from_numpy(clean),
-        torch.from_numpy(s.astype(np.int64)), torch.from_numpy(alpha),
+        torch.from_numpy(s.astype(np.int64)), torch.ones(len(s)),
+        torch.from_numpy(alpha),
         train.TrainHyper(compute_dtype="bfloat16", **kw))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), [float(x) for x in want],
@@ -672,3 +673,93 @@ def test_train_cli_bf16_on_cpu(pfile_pair, bf16_runs, tmp_path):
     for e in (1, 2):
         assert (tmp_path / f"mlp.{e}.wts").read_bytes() == \
             (bf16_runs / "port" / f"mlp.{e}.wts").read_bytes()
+
+
+@pytest.mark.parametrize("beta,n_valid", [(1.0, 8), (0.9, 5), (2.0, 1)])
+def test_masked_cv_chunk_metrics_matches_jax(beta, n_valid):
+    """The batch padded as ``tpu_se`` pads it: pad rows (start 0, mask 0)
+    add nothing, and the sums are the unpadded batch's."""
+    noisy, clean, starts, layers = _tiny_problem()
+    params = [{k: jnp.asarray(v) for k, v in l.items()} for l in layers]
+    alpha = np.linspace(0.5, 1.5, 5).astype(np.float32)
+    s = starts[0].copy()
+    s[n_valid:] = 0
+    mask = (np.arange(len(s)) < n_valid).astype(np.float32)
+    kw = dict(beta=beta, context=3, targ_offset=1)
+    want = ref_step.cv_chunk_metrics(
+        params, jnp.asarray(noisy), jnp.asarray(clean), jnp.asarray(s),
+        jnp.asarray(mask), jnp.asarray(alpha), ref_train.TrainHyper(**kw))
+    model = params_from_numpy(layers, "cpu")
+    args = (model, torch.from_numpy(noisy), torch.from_numpy(clean))
+    got = train.cv_chunk_metrics(
+        *args, torch.from_numpy(s.astype(np.int64)), torch.from_numpy(mask),
+        torch.from_numpy(alpha), train.TrainHyper(**kw))
+    np.testing.assert_allclose(got.numpy(), [float(x) for x in want],
+                               rtol=1e-5)
+    unpadded = train.cv_chunk_metrics(
+        *args, torch.from_numpy(s[:n_valid].astype(np.int64)),
+        torch.ones(n_valid), torch.from_numpy(alpha), train.TrainHyper(**kw))
+    np.testing.assert_allclose(got.numpy(), unpadded.numpy(), rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def cv_pair(tmp_path_factory):
+    """A 24-sentence pfile pair whose CV set (sentences 4-23, 5,293
+    windows) takes one full CV batch and a partial one when resident, and
+    a partial batch in each chunk of 1,200 frames when read per chunk
+    (5,269 windows)."""
+    root = tmp_path_factory.mktemp("cv_pair")
+    rng = np.random.default_rng(4)
+    lens = rng.integers(200, 330, size=24)
+    noisy = [(rng.normal(size=(n, 257)) * 2 + 3).astype(np.float32)
+             for n in lens]
+    clean = [(x * 0.8 + rng.normal(scale=0.3, size=x.shape)
+              ).astype(np.float32) for x in noisy]
+    paths = (str(root / "noisy.pfile"), str(root / "clean.pfile"),
+             str(root / "noisy.norm"))
+    ref_io.write_pfile(paths[0], noisy)
+    ref_io.write_pfile(paths[1], clean)
+    frames = np.concatenate(noisy)
+    ref_io.write_norm(paths[2], frames.mean(0), 1.0 / frames.std(0))
+    return paths
+
+
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["resident", "per-chunk"])
+def test_evaluate_cv_matches_jax_with_a_partial_batch(cv_pair, resident):
+    """``evaluate_cv`` against ``tpu_se``'s: the same padded batches, the
+    three sums within rtol 1e-5 (float32 sums in another order), the
+    frame count equal; ``graph=False`` the same bits on the CPU."""
+    from tpu_se.data import PfilePairDataset as RefDataset
+
+    layers = _np_layers(jax_init_params(5, NARROW))
+    alpha = np.linspace(0.6, 1.4, 257).astype(np.float32)
+    hyper = dict(beta=0.9)
+    traincache = 1200 if not resident else 102400
+    ref_ds = RefDataset(*cv_pair, (4, 23), traincache)
+    ds = PfilePairDataset(*cv_pair, (4, 23), traincache)
+    ref_state = ref_step.TrainState(
+        [{k: jnp.asarray(v) for k, v in l.items()} for l in layers], None,
+        jnp.asarray(alpha))
+    want = ref_loop.evaluate_cv(
+        ref_state, ref_ds, ref_train.TrainHyper(**hyper),
+        device_frames=(tuple(map(jnp.asarray, ref_ds.load_span_normalized()))
+                       if resident else None))
+    state = train.make_train_state(params_from_numpy(layers, "cpu"))
+    state.alpha = torch.from_numpy(alpha)
+    frames = loop.load_device_frames(ds, "cpu") if resident else None
+    got = loop.evaluate_cv(state, ds, train.TrainHyper(**hyper), "cpu",
+                           device_frames=frames)
+    # A chunk boundary cuts the windows that would cross it.
+    assert got["cv_frames"] == want["cv_frames"] == (5293 if resident
+                                                     else 5269)
+    n_batches = (-(-5293 // train.CV_BATCH) if resident
+                 else sum(-(-len(ds.chunk(i).starts) // train.CV_BATCH)
+                          for i in range(ds.n_chunks)))
+    assert n_batches == (2 if resident else ds.n_chunks) and n_batches > 1
+    for key in ("cv_squared_error", "cv_abs_error", "cv_ggd_loglik"):
+        assert got[key] == pytest.approx(want[key], rel=1e-5), key
+    eager = loop.evaluate_cv(state, ds, train.TrainHyper(**hyper), "cpu",
+                             device_frames=frames, graph=False)
+    assert eager == got
+    assert state._cv_graph is None

@@ -773,3 +773,136 @@ def test_shutdown_releases_a_live_bunch_graph(monkeypatch):
     distributed.shutdown_distributed()
     distributed.shutdown_distributed()
     assert [(g.key, g.graph.resets) for g in graphs] == [(None, 1)] * 2
+
+
+# -- the CV pass ---------------------------------------------------------------
+
+def cv_problem(root, seed=6):
+    """A 24-sentence pfile pair (the port's writers) whose CV set,
+    sentences 4-23, takes more than one ``CV_BATCH`` when resident ->
+    (noisy, clean, norm) paths."""
+    from tpu_se_torch.io import write_norm, write_pfile
+
+    rng = np.random.default_rng(seed)
+    noisy = [(rng.normal(size=(n, 257)) * 2 + 3).astype(np.float32)
+             for n in rng.integers(200, 330, size=24)]
+    clean = [(x * 0.8 + rng.normal(scale=0.3, size=x.shape)
+              ).astype(np.float32) for x in noisy]
+    paths = tuple(str(root / name) for name in
+                  ("noisy.pfile", "clean.pfile", "noisy.norm"))
+    write_pfile(paths[0], noisy)
+    write_pfile(paths[1], clean)
+    frames = np.concatenate(noisy)
+    write_norm(paths[2], frames.mean(0), 1.0 / frames.std(0))
+    return paths
+
+
+def cv_turns(states: dict, ds, hyper, frames, device, turns: int = 2,
+             mesh=None) -> tuple[list, list]:
+    """``turns`` CV passes of each state of ``{graph: state}``, alpha (a new
+    tensor) and the weights (in place) changed before each -> (per turn
+    ``{graph: metrics}``, per turn ``{graph: (replays, captures,
+    counters moved)}``)."""
+    from tpu_se_torch.train.loop import evaluate_cv
+
+    metrics, moved = [], []
+    for turn in range(turns):
+        metrics.append({})
+        moved.append({})
+        for graph, state in states.items():
+            state.alpha = torch.linspace(0.6 + 0.1 * turn, 1.4, 257,
+                                         device=device)
+            with torch.no_grad():
+                for layer in param_layers(state.model):
+                    layer["w"].mul_(1.0 + 0.01 * turn)
+            before = (step.cv_batches_replayed, step.cv_graphs_captured,
+                      step.read_counts(None if mesh is None
+                                       else mesh.traffic))
+            metrics[turn][graph] = evaluate_cv(state, ds, hyper, device,
+                                               frames, graph=graph)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            moved[turn][graph] = (
+                step.cv_batches_replayed - before[0],
+                step.cv_graphs_captured - before[1],
+                [b - a for a, b in zip(before[2], step.read_counts(
+                    None if mesh is None else mesh.traffic))])
+    return metrics, moved
+
+
+def test_cv_pass_replay_rule_and_key(tmp_path):
+    """On the CPU the CV pass is eager whatever ``graph`` says, and keeps
+    no graph; a CV graph's key follows the frames, the parameters and
+    ``hyper``, not alpha."""
+    from tpu_se_torch.data import PfilePairDataset
+
+    ds = PfilePairDataset(*cv_problem(tmp_path), (4, 23), 1200)
+    states = {g: _state(init_params(5, NARROW), "cpu") for g in (True, False)}
+    metrics, moved = cv_turns(states, ds, TrainHyper(beta=0.9), None,
+                              torch.device("cpu"))
+    for turn in metrics:
+        assert turn[True] == turn[False]
+    assert metrics[0][True] != metrics[1][True]
+    assert all(m == (0, 0, [0] * 4) for turn in moved for m in turn.values())
+    assert states[True]._cv_graph is None
+    assert not step.CVPass(states[True], TrainHyper(), "cpu").replays
+    state = states[True]
+    noisy, clean = torch.zeros(8, 257), torch.zeros(8, 257)
+    hyper = TrainHyper()
+    key = step._cv_key(state, noisy, clean, hyper, None)[0]
+    state.alpha = torch.ones(257)
+    assert step._cv_key(state, noisy, clean, hyper, None)[0] == key
+    assert step._cv_key(state, noisy.clone(), clean, hyper, None)[0] != key
+    assert step._cv_key(state, noisy, clean, TrainHyper(beta=0.9),
+                        None)[0] != key
+    other = _state(init_params(5, NARROW), "cpu")
+    assert step._cv_key(other, noisy, clean, hyper, None)[0] != key
+
+
+def test_a_cv_graph_releases_on_shutdown(monkeypatch):
+    from tpu_se_torch.parallel import distributed
+
+    class _Graph:
+        resets = 0
+
+        def reset(self):
+            self.resets += 1
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device: None)
+    stream = type("Stream", (), {"device": torch.device("cuda", 0)})()
+    g = step._CVGraph(("key",), (), _Graph(), stream, *([None] * 6))
+    distributed.release_on_shutdown(g)
+    distributed.shutdown_distributed()
+    assert (g.key, g.graph.resets) == (None, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["resident", "per-chunk"])
+def test_cv_replay_equals_eager_across_alpha_and_weights(card, tmp_path,
+                                                         compute_dtype,
+                                                         resident):
+    """Two CV passes, alpha and the weights changed before each: the
+    replayed sums bit for bit the eager pass's every time, one capture
+    (after one eager batch), every other batch a replay."""
+    from tpu_se_torch.data import PfilePairDataset
+    from tpu_se_torch.train.loop import CV_BATCH, load_device_frames
+
+    ds = PfilePairDataset(*cv_problem(tmp_path), (4, 23),
+                          102400 if resident else 1200)
+    frames = load_device_frames(ds, card) if resident else None
+    batches = sum(-(-len(ds.chunk_starts(i)) // CV_BATCH)
+                  for i in range(ds.n_chunks))
+    assert batches > 1
+    states = {g: _state(init_params(5, NARROW), card) for g in (True, False)}
+    metrics, moved = cv_turns(
+        states, ds, TrainHyper(beta=0.9, compute_dtype=compute_dtype),
+        frames, card)
+    for turn in metrics:
+        assert turn[True] == turn[False]
+    assert metrics[0][True] != metrics[1][True]
+    assert [m[True][:2] for m in moved] == [(batches - 1, 1), (batches, 0)]
+    assert [m[False][:2] for m in moved] == [(0, 0), (0, 0)]
+    assert states[False]._cv_graph is None
+    assert states[True]._cv_graph.owns_frames is not resident

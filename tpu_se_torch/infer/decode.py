@@ -6,11 +6,35 @@ Port of ``tpu_se/infer/decode.py``, the ``Test_code/decode.m`` pipeline:
         -> de-normalize (+ blend) -> exp/2 + noisy phase -> OLA -> int16 wav
 
 Everything between the frames and the OLA waveform runs on one device,
-with the LPS front end in the hand-written kernel on a CUDA device.  A
-batch is padded to its longest utterance and masked by ``n_valid``; eager
-PyTorch needs none of the JAX package's shape buckets, and padded rows
-change nothing (the splice clamps at the last valid frame, the OLA drops
-invalid rows).
+with the LPS front end in the hand-written kernel on a CUDA device.
+
+Shapes come in buckets, as the reference's do, so that a captured program
+repeats: the frame axis is zero-padded to a multiple of
+``DECODE_PAD_BUCKET`` = 64 frames and a batch (``enhance_batch``,
+``enhance_batch_waves``) to a multiple of ``BATCH_BUCKET`` = 4 utterances;
+``enhance`` keeps its one row, as ``_decode_device`` has no batch axis.
+Padded rows and frames are zeros and change nothing: the splice clamps at
+the last valid frame, the ``"auto"`` blend sums valid rows only, the OLA
+drops invalid rows; the outputs are cut back to each utterance.  The
+reference pads ``enhance`` and the batches to 256 frames
+(``FRAME_BUCKET``) and only ``enhance_lps`` to 64; the port takes 64 for
+all four: at 256 a 1 s utterance (~62 frames) would run 4x its products,
+and 7.2 s (448 frames = 7 x 64) would run as 512 (+14 %).
+
+On a card (``mesh=None``, ``graph=True``) each padded shape is one
+captured ``torch.cuda.CUDAGraph``, replayed: ``jax.jit`` of
+``_decode_device``, ``_decode_device_batch``, ``_decode_device_batch_waves``
+and ``_enhance_lps`` becomes a graph per (program, padded shape, compute
+dtype, blend), captured after one eager run of its first call on a side
+stream (which builds the cuFFT plans and cuBLAS handles that a capture
+cannot).  The graphs of one ``Enhancer`` share one memory pool and are
+kept up to ``MAX_DECODE_GRAPHS``, least recently used out.  A call copies
+its inputs into the graph's static tensors (zeros outside its shape) and
+reads the static outputs before the next replay.  The weights (and their
+bfloat16 copy) are frozen, so the graphs read them by address.  The CPU,
+a mesh and ``graph=False`` run the same programs eagerly at the same
+padded shapes.  A replay adds its capture's LPS launches to
+``lps_kernel.launches`` (one per call, as eager).
 
 Under a mesh (``Enhancer(mesh=)``, one process per device) the weights are
 whole on every rank and only the ``data`` axis splits the work, as the
@@ -25,8 +49,11 @@ the OLA sees the whole utterance.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+from collections import OrderedDict
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -39,7 +66,20 @@ from tpu_se_torch.dsp.metrics import segsnr_lsd_pair
 from tpu_se_torch.dsp.synthesis import _synth_and_ola, reconstruct
 from tpu_se_torch.io import read_norm, read_wav, read_wts, write_wav
 from tpu_se_torch.models.ffn import FFN, params_from_numpy
+from tpu_se_torch.ops import lps_kernel
 from tpu_se_torch.utils.device import resolve_compute_dtype, resolve_device
+
+# Pad buckets (tpu_se/infer/decode.py:34, its Enhancer.BATCH_BUCKET): the
+# frame axis to a multiple of 64 frames, a batch to a multiple of 4.
+DECODE_PAD_BUCKET = 64
+BATCH_BUCKET = 4
+# Captured programs an Enhancer keeps (least recently used out).
+MAX_DECODE_GRAPHS = 16
+
+# Decode calls run as replays of a captured graph, and graphs captured,
+# over every Enhancer of the process.
+decodes_replayed = 0
+decode_graphs_captured = 0
 
 # Adaptive-blend map (tpu_se/infer/decode.py): lam = LMAX *
 # exp(-suppression_dB / TAU), clipped to [0, 0.9], from the utterance's
@@ -237,6 +277,40 @@ def _exp_floored(lps: np.ndarray) -> np.ndarray:
     return np.where(lps < LOG_FLOOR, np.exp(LOG_FLOOR), np.exp(lps))
 
 
+def _roundup(n: int, bucket: int) -> int:
+    return -(-n // bucket) * bucket
+
+
+def _fill(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``src`` into the leading corner of ``dst`` (any devices), zeros in
+    the rest of ``dst``."""
+    if src.shape == dst.shape:
+        dst.copy_(src)
+    else:
+        dst.zero_()
+        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+
+
+def _pad_to(src: torch.Tensor, shape: tuple, device) -> torch.Tensor:
+    """``src`` on ``device``, zero-padded at the end of each axis to
+    ``shape``."""
+    if tuple(src.shape) == shape:
+        return src.to(device)
+    out = torch.empty(shape, dtype=src.dtype, device=device)
+    _fill(out, src)
+    return out
+
+
+@dataclass(eq=False)
+class _DecodeGraph:
+    """One decode program captured at one padded shape: its static inputs
+    and outputs, and the LPS kernel launches that one replay makes."""
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: tuple
+    launches: int
+
+
 class Enhancer:
     """Loaded model + normalization stats on ``device``, ready to enhance.
 
@@ -255,12 +329,18 @@ class Enhancer:
     mesh's device and its data axis splits the work (see the module's
     docstring); every call returns, on every rank, what one device's
     returns.
+
+    ``graph``: on a card without a mesh, each padded shape's program is
+    captured once and replayed (the module's docstring); a capture that
+    fails raises.  ``graph=False`` runs the same programs eagerly at the
+    same padded shapes, the reference the replays are held to.
     """
 
     def __init__(self, wts_path, norm_path, device="cuda", context: int = 7,
                  postprocess: bool = False, smooth: bool = False,
                  smooth_strength=None, sample_rate: int = 16000,
-                 blend=0.0, compute_dtype=torch.float32, mesh=None):
+                 blend=0.0, compute_dtype=torch.float32, mesh=None,
+                 graph: bool = True):
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
@@ -288,15 +368,144 @@ class Enhancer:
                                                       smooth)
         self.smooth = self.smooth_strength != 0.0
         self.blend = _check_blend(blend)
+        self.replays = (graph and mesh is None
+                        and self.device.type == "cuda")
+        # The captured programs by key, least recently used first; their
+        # shared memory pool and the stream they were captured on.
+        self._graphs: OrderedDict = OrderedDict()
+        self._pool = None
+        self._stream = None
 
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
-    def _decode(self, frames: torch.Tensor, n_valid: torch.Tensor):
+    def _padded_shape(self, b: int, t: int, batch: bool) -> tuple[int, int]:
+        """(B_pad, T_pad) of a call with ``b`` rows of ``t`` frames: T up
+        to a multiple of ``DECODE_PAD_BUCKET``; with ``batch``, B up to a
+        multiple of ``BATCH_BUCKET`` (under a mesh, rounded up to a
+        multiple of the data axis, as the reference rounds it)."""
+        if not batch:
+            return b, _roundup(t, DECODE_PAD_BUCKET)
+        bucket = (BATCH_BUCKET if self.mesh is None
+                  else _roundup(BATCH_BUCKET, self.mesh.data))
+        return _roundup(b, bucket), _roundup(t, DECODE_PAD_BUCKET)
+
+    @torch.inference_mode()
+    def _run(self, kind: str, fn, inputs: tuple, shapes: tuple) -> tuple:
+        """``fn(*inputs)`` -> its tuple of outputs, each input zero-padded
+        at the end of its axes to its shape in ``shapes`` (the inputs may
+        lie on the host).  Eager, or with ``self.replays`` a replay of the
+        graph of (``kind``, ``shapes``, compute dtype, blend), captured
+        at its first call.  A replay's outputs are the graph's static
+        tensors: the next replay of any graph of this ``Enhancer`` may
+        overwrite them, so the caller reads them before its next call."""
+        global decodes_replayed
+        if not self.replays:
+            return fn(*(_pad_to(x, s, self.device)
+                        for x, s in zip(inputs, shapes)))
+        key = (kind, shapes, self.compute_dtype, self.blend)
+        g = self._graphs.get(key)
+        if g is None:
+            return self._capture(key, fn, inputs, shapes)
+        self._graphs.move_to_end(key)
+        for static, x in zip(g.inputs, inputs):
+            _fill(static, x)
+        g.graph.replay()
+        decodes_replayed += 1
+        lps_kernel.launches += g.launches
+        return g.outputs
+
+    def _capture(self, key: tuple, fn, inputs: tuple, shapes: tuple
+                 ) -> tuple:
+        """Run ``fn`` eagerly on new static inputs on a side stream, then
+        capture it there into this ``Enhancer``'s memory pool -> the eager
+        run's outputs (the call that captures is that run).  The capture
+        launches nothing: its LPS launches are kept for the replays and
+        taken off the counter.  A capture that fails raises its error."""
+        global decode_graphs_captured
+        with torch.cuda.device(self.device):
+            statics = tuple(torch.empty(s, dtype=x.dtype, device=self.device)
+                            for x, s in zip(inputs, shapes))
+            for static, x in zip(statics, inputs):
+                _fill(static, x)
+            current = torch.cuda.current_stream()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            side = self._stream
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                outs = fn(*statics)
+            for out in outs:              # read on the current stream
+                out.record_stream(current)
+            while len(self._graphs) >= MAX_DECODE_GRAPHS:
+                self._graphs.popitem(last=False)
+            graph = torch.cuda.CUDAGraph()
+            before = lps_kernel.launches
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        static_outs = fn(*statics)
+                    except BaseException:
+                        # Raise the capture's own error, not the one that
+                        # ending an invalidated capture adds to it.
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+            finally:
+                launches = lps_kernel.launches - before
+                lps_kernel.launches = before
+            current.wait_stream(side)
+        if self._pool is None:
+            self._pool = graph.pool()
+        self._graphs[key] = _DecodeGraph(graph, statics, static_outs,
+                                         launches)
+        decode_graphs_captured += 1
+        return outs
+
+    def _core(self, frames: torch.Tensor, n_valid: torch.Tensor) -> tuple:
         return _decode_core(self.model, frames, self.mean, self.inv_std,
                             n_valid, self.basis, self.window,
                             self.frame_shift, self.context, self.blend,
                             self.compute_dtype, self.cast_weights)
+
+    def _waves_core(self, waves: torch.Tensor, n_valid: torch.Tensor
+                    ) -> tuple[torch.Tensor]:
+        """The int16 fast path's program: int16 waves [B, (T+1)*shift] ->
+        (int16 enhanced waves [B, S],), framed on the device (frame_length
+        == 2 * shift: each frame joins two adjacent shift-sized blocks)."""
+        w = waves.to(torch.float32)
+        blocks = w.reshape(w.shape[0], w.shape[1] // self.frame_shift,
+                           self.frame_shift)
+        frames = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
+        return (trunc_int16(self._core(frames, n_valid)[0]),)
+
+    def _lps_core(self, lps: torch.Tensor, n_valid: torch.Tensor
+                  ) -> tuple[torch.Tensor]:
+        return (_enhance_lps(self.model, lps, self.mean, self.inv_std,
+                             n_valid, self.context, self.blend,
+                             self.compute_dtype, self.cast_weights),)
+
+    def _decode(self, frames: torch.Tensor, n_valid: torch.Tensor):
+        """The fused decode: frames [B, T, len] and valid counts [B] (on
+        the device or the host) -> (OLA waves [B, S], recon frames [B, T,
+        len], enhanced LPS [B, T, bins]) for this B and T.  Without a mesh
+        it runs at the padded shape (``_padded_shape``; one row stays one)
+        and cuts the outputs back: on a card they are views of a replayed
+        graph's static outputs, overwritten by this ``Enhancer``'s next
+        decode.  Under a mesh: this rank's rows as they are, eagerly."""
+        b, t, length = frames.shape
+        if self.mesh is not None:
+            return self._core(frames.to(self.device),
+                              n_valid.to(self.device))
+        b_pad, t_pad = self._padded_shape(b, t, batch=b > 1)
+        wave, recon, enh = self._run(
+            "frames", self._core, (frames, n_valid),
+            ((b_pad, t_pad, length), (b_pad,)))
+        cut = wave.shape[1] - (t_pad - t) * self.frame_shift
+        return wave[:b, :cut], recon[:b, :t], enh[:b, :t]
 
     def _frame_block(self, t: int) -> tuple[int, int, int, int]:
         """This rank's frames [lo, hi) of a T-frame utterance (a multiple
@@ -323,17 +532,21 @@ class Enhancer:
 
     @torch.inference_mode()
     def enhance_lps(self, lps: np.ndarray) -> np.ndarray:
-        """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins]."""
-        t = lps.shape[0]
-        if self.mesh is not None and t:
+        """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins],
+        run at T padded to a multiple of ``DECODE_PAD_BUCKET``."""
+        t, bins = lps.shape
+        if t == 0:
+            return np.zeros((0, bins), np.float32)
+        if self.mesh is not None:
             block = self._frame_block(t)
             return self._enhance_block(self._tensor(lps[block[2]:block[3]]),
                                        t, block).cpu().numpy()
-        n_valid = torch.tensor([t], device=self.device)
-        out = _enhance_lps(self.model, self._tensor(lps)[None], self.mean,
-                           self.inv_std, n_valid, self.context, self.blend,
-                           self.compute_dtype, self.cast_weights)
-        return out[0].cpu().numpy()
+        (out,) = self._run(
+            "lps", self._lps_core,
+            (torch.from_numpy(np.ascontiguousarray(lps, np.float32))[None],
+             torch.tensor([t])),
+            ((1, _roundup(t, DECODE_PAD_BUCKET), bins), (1,)))
+        return out[0, :t].cpu().numpy()
 
     @torch.inference_mode()
     def enhance(self, noisy_wave: np.ndarray
@@ -347,7 +560,7 @@ class Enhancer:
         if not (self.smooth or self.postprocess):
             if self.mesh is not None:
                 return self._decode_utterance(noisy_wave)
-            return self._decode_waves([noisy_wave])[0]
+            return self._decode_waves([noisy_wave], batch=False)[0]
         frames = frame_signal(noisy_wave, self.frame_length,
                               self.frame_shift)
         lps = lps_from_frames(self._tensor(frames),
@@ -369,7 +582,8 @@ class Enhancer:
     @torch.inference_mode()
     def enhance_batch(self, waves: list
                       ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """Enhance B utterances in one device pass, padded to the longest.
+        """Enhance B utterances in one device pass, B and the longest
+        utterance's frames padded to their buckets (``_padded_shape``).
 
         Matches per-utterance ``enhance`` within 1 int16 LSB (batched
         products may sum in another order).  Smoothing/postprocessing use
@@ -377,7 +591,7 @@ class Enhancer:
         """
         if self.smooth or self.postprocess:
             return [self.enhance(w) for w in waves]
-        return self._decode_waves(waves)
+        return self._decode_waves(waves, batch=True)
 
     def _empty(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return (np.zeros(0, np.int16),
@@ -422,22 +636,26 @@ class Enhancer:
             return t
         return self.mesh.all_gather(t, 0, "data")[:b]
 
-    def _decode_waves(self, waves: list
+    def _decode_waves(self, waves: list, batch: bool
                       ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """The fused decode of B waves, padded to the longest utterance;
-        an utterance too short for one frame gives empty outputs."""
+        """The fused decode of B waves at their padded shape
+        (``_padded_shape(B, longest, batch)``); an utterance too short for
+        one frame gives empty outputs."""
         frames = [frame_signal(w, self.frame_length, self.frame_shift)
                   for w in waves]
         ts = [f.shape[0] for f in frames]
         empty = self._empty()
         if max(ts, default=0) == 0:
             return [empty for _ in waves]
-        frames_b = np.zeros((len(waves), max(ts), self.frame_length),
+        b_pad, t_pad = self._padded_shape(len(waves), max(ts), batch)
+        frames_b = np.zeros((b_pad, t_pad, self.frame_length),
                             dtype=np.float32)
         for i, f in enumerate(frames):
             frames_b[i, : ts[i]] = f
-        outs = self._decode(*self._my_rows(
-            self._tensor(frames_b), torch.tensor(ts, device=self.device)))
+        n_valid = np.zeros(b_pad, dtype=np.int64)
+        n_valid[: len(ts)] = ts
+        outs = self._decode(*self._my_rows(torch.from_numpy(frames_b),
+                                           torch.from_numpy(n_valid)))
         wave_b, recon_b, enh_b = (self._all_rows(o, len(waves))
                                   for o in outs)
         wave_b = wave_b.cpu().numpy()
@@ -451,21 +669,29 @@ class Enhancer:
     def decode_waves_tensor(self, waves: torch.Tensor,
                             n_valid: torch.Tensor) -> torch.Tensor:
         """Serving fast path on the device: int16 waves [B, (T+1)*shift] and
-        frame counts [B] -> int16 enhanced waves [B, S], framed on the device.
+        frame counts [B] (on the device or the host) -> int16 enhanced
+        waves [B, S] on the device, framed there.
 
         Framing uses frame_length == 2 * shift (the ETSI 50 %-overlap
         config, ``Wav2LogSpec_be.c:43,49``): each frame joins two adjacent
-        shift-sized blocks.  Under a mesh each data index decodes its block
-        of the batch and every rank returns the whole batch.
+        shift-sized blocks.  Without a mesh the program runs at the padded
+        shape (``_padded_shape``), replayed on a card, and the result is a
+        view of the graph's static output there, overwritten by the next
+        decode.  Under a mesh each data index decodes its block of the
+        batch and every rank returns the whole batch.
         """
         b = waves.shape[0]
-        waves, n_valid = self._my_rows(waves, n_valid)
-        w = waves.to(torch.float32)
-        blocks = w.reshape(w.shape[0], w.shape[1] // self.frame_shift,
-                           self.frame_shift)
-        frames = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2)
-        wave, _, _ = self._decode(frames, n_valid)
-        return self._all_rows(trunc_int16(wave), b)
+        if self.mesh is not None:
+            waves, n_valid = self._my_rows(waves, n_valid)
+            (wave,) = self._waves_core(waves.to(self.device),
+                                       n_valid.to(self.device))
+            return self._all_rows(wave, b)
+        shift = self.frame_shift
+        t = waves.shape[1] // shift - 1
+        b_pad, t_pad = self._padded_shape(b, t, batch=b > 1)
+        (wave,) = self._run("waves", self._waves_core, (waves, n_valid),
+                            ((b_pad, (t_pad + 1) * shift), (b_pad,)))
+        return wave[:b, : wave.shape[1] - (t_pad - t) * shift]
 
     def enhance_batch_waves(self, waves: list) -> list[np.ndarray]:
         """B int16 waves -> B enhanced int16 waves (serving fast path).
@@ -481,14 +707,17 @@ class Enhancer:
         ts = [max(0, (len(w) - shift) // shift) for w in waves]
         if max(ts, default=0) == 0:
             return [np.zeros(0, np.int16) for _ in waves]
-        waves_b = np.zeros((len(waves), (max(ts) + 1) * shift),
-                           dtype=np.int16)
+        # enhance_batch's padded shape: the same program, the same bits.
+        b_pad, t_pad = self._padded_shape(len(waves), max(ts), batch=True)
+        waves_b = np.zeros((b_pad, (t_pad + 1) * shift), dtype=np.int16)
         for i, w in enumerate(waves):
             n = (ts[i] + 1) * shift if ts[i] else 0
             waves_b[i, :n] = np.asarray(w[:n], dtype=np.int16)
+        n_valid = np.zeros(b_pad, dtype=np.int64)
+        n_valid[: len(ts)] = ts
         wave_b = self.decode_waves_tensor(
-            self._tensor(waves_b),
-            torch.tensor(ts, device=self.device)).cpu().numpy()
+            torch.from_numpy(waves_b),
+            torch.from_numpy(n_valid)).cpu().numpy()
         tail = self.frame_length - shift
         return [wave_b[i, : t * shift + tail] if t
                 else np.zeros(0, np.int16) for i, t in enumerate(ts)]

@@ -59,7 +59,7 @@ from tpu_se_torch.train.checkpoint import (
 )
 from tpu_se_torch.train import step as step_mod
 from tpu_se_torch.train.step import (
-    TrainHyper, TrainState, cv_chunk_metrics, make_train_state, train_chunk,
+    CVPass, TrainHyper, TrainState, make_train_state, train_chunk,
 )
 from tpu_se_torch.utils import EpochLogger, resolve_device
 
@@ -259,38 +259,40 @@ def train_one_epoch(state: TrainState, dataset: PfilePairDataset,
 
 
 def evaluate_cv(state: TrainState, cv_dataset: PfilePairDataset,
-                hyper: TrainHyper, device, device_frames=None) -> dict:
+                hyper: TrainHyper, device, device_frames=None,
+                graph: bool = True) -> dict:
     """CV metrics over a dataset (sequential order, partial bunches kept;
     ``Interface.cc:841-965`` + ``BP_GPU.cu:187-306``).
 
-    Batches of ``CV_BATCH`` windows; each batch's three float32 sums are
-    accumulated into a float64 tensor on the device, which the host reads
-    once at the end.
+    Batches of ``CV_BATCH`` windows, the last of each chunk padded to
+    ``CV_BATCH`` with a 0/1 mask, as ``tpu_se`` pads them; each batch's
+    three float32 sums are accumulated into a float64 tensor on the
+    device, which the host reads once at the end (``step.CVPass``).  On a
+    card (one device or an NCCL mesh) the batches replay one captured
+    graph; ``graph=False``, gloo and the CPU run them eagerly.
     """
-    device = torch.device(device)
     out_dim = cv_dataset.dim
-    acc = torch.zeros(3, dtype=torch.float64, device=device)
+    cv = CVPass(state, hyper, device, graph)
     n_total = 0
-
-    def accumulate(noisy_dev, clean_dev, starts):
-        nonlocal n_total
-        for lo in range(0, len(starts), CV_BATCH):
-            s = starts[lo:lo + CV_BATCH]
-            acc.add_(cv_chunk_metrics(
-                state.model, noisy_dev, clean_dev,
-                to_device(s.astype(np.int64), device), state.alpha,
-                hyper).double())
-            n_total += len(s)
-
     for ci in range(cv_dataset.n_chunks):
         if device_frames is not None:
-            accumulate(*device_frames, cv_dataset.chunk_starts(ci))
+            cv.frames(*device_frames)
+            starts = cv_dataset.chunk_starts(ci)
         else:
             chunk = cv_dataset.chunk(ci)       # no rng -> sequential
-            accumulate(to_device(chunk.noisy, device),
-                       to_device(chunk.clean, device), chunk.starts)
+            cv.frames(chunk.noisy, chunk.clean)
+            starts = chunk.starts
+        for lo in range(0, len(starts), CV_BATCH):
+            s = starts[lo:lo + CV_BATCH]
+            n = len(s)
+            mask = np.zeros(CV_BATCH, dtype=np.float32)
+            mask[:n] = 1.0
+            s_pad = np.zeros(CV_BATCH, dtype=np.int64)
+            s_pad[:n] = s
+            cv.batch(s_pad, mask)
+            n_total += n
 
-    sq, ab, sum_pow = acc.tolist()
+    sq, ab, sum_pow = cv.sums()
     alpha = state.alpha.cpu().numpy().astype(np.float64)
     gamma_val = ref_gamma(1.0 / hyper.beta)
     loglik = (n_total * out_dim * math.log(hyper.beta / (2.0 * gamma_val))

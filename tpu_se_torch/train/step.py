@@ -55,6 +55,14 @@ the loop replays one captured CUDA graph per bunch; elsewhere, and with
   bunch added to the kernels' launch counters and to ``Mesh.traffic``,
   takes it back (the capture launched and sent nothing), and each replay
   adds it once.
+- The CV pass (``CVPass``) runs ``tpu_se``'s padded batches of
+  ``CV_BATCH`` windows with their 0/1 mask and, on a card (one device or
+  an NCCL mesh), replays one captured batch per state on the same terms:
+  one eager warm-up batch before the capture, ``thread_local``, counters
+  taken back and added per replay, a mesh graph named to
+  ``release_on_shutdown``.  Its key holds the frames, the parameters and
+  ``hyper``; it reads its own copy of alpha, refreshed at every pass, and
+  adds each batch's float32 sums into its float64 accumulator.
 
 - The 7-frame context splice is a device gather from the chunk's (or the
   resident span's) frame matrix; the chunk's window starts arrive as one
@@ -145,6 +153,10 @@ class TrainHyper:
                                resolve_compute_dtype(self.act_dtype))
 
 
+# A chunk's rows in a CV graph's frame buffers are rounded up to this
+# (tpu_se/train/loop.py:35 pads every chunk to it).
+FRAME_PAD_BUCKET = 4096
+
 # Bunches run as replays of a captured graph, and graphs captured (each
 # after one eager warm-up bunch), over every state of the process.  A
 # replay launches the GGD and optimizer kernels and runs the collectives
@@ -216,6 +228,8 @@ class TrainState:
     # (one per state: the last step's).
     _graph: _BunchGraph | None = field(default=None, repr=False,
                                        compare=False)
+    # The captured CV batch (CVPass), read by every CV pass of the state.
+    _cv_graph: Any = field(default=None, repr=False, compare=False)
 
 
 def param_layers(model: FFN) -> list[dict]:
@@ -485,16 +499,205 @@ def cv_forward(model: FFN | TensorParallelFFN, noisy: torch.Tensor, starts: torc
 
 
 @torch.no_grad()
-def cv_chunk_metrics(model: FFN | TensorParallelFFN, noisy: torch.Tensor, clean: torch.Tensor,
-                     starts: torch.Tensor, alpha: torch.Tensor,
+def cv_chunk_metrics(model: FFN | TensorParallelFFN, noisy: torch.Tensor,
+                     clean: torch.Tensor, starts: torch.Tensor,
+                     mask: torch.Tensor, alpha: torch.Tensor,
                      hyper: TrainHyper) -> torch.Tensor:
-    """Device-side CV sums for one batch of windows -> float32 [3]:
-    (sum squared err, sum abs err, sum (|err|/alpha)^beta), the three
-    reductions behind ``CrossValid``, ``CrossValiddB`` and ``CrossValid2``
-    (``BP_GPU.cu:187-306``).  The batch is not padded, so no mask."""
+    """Device-side CV sums for one padded batch of windows -> float32 [3]:
+    (sum squared err, sum abs err, sum (|err|/alpha)^beta) over the windows
+    whose ``mask`` is 1 (0 on the pad rows, whose starts may be any valid
+    window), the three reductions behind ``CrossValid``, ``CrossValiddB``
+    and ``CrossValid2`` (``BP_GPU.cu:187-306``), as
+    ``tpu_se.train.step.cv_chunk_metrics`` takes them."""
     out = cv_forward(model, noisy, starts, hyper.context,
                      hyper.compute_dtype)
-    err = out - clean[starts + hyper.targ_offset]
+    err = (out - clean[starts + hyper.targ_offset]) * mask[:, None]
     abs_e = err.abs()
     return torch.stack([(err * err).sum(), abs_e.sum(),
-                        ((abs_e / alpha) ** hyper.beta).sum()])
+                        ((abs_e / alpha) ** hyper.beta
+                         * mask[:, None]).sum()])
+
+
+# CV batches run as replays of a captured graph, and CV graphs captured,
+# over every state of the process (a capture follows one eager batch).
+cv_batches_replayed = 0
+cv_graphs_captured = 0
+
+
+@dataclass(eq=False)
+class _CVGraph:
+    """One CV batch captured on a card, and the static tensors it reads and
+    writes: the frames (the caller's resident span, or buffers of its own
+    that a chunk is copied into), the batch's starts and mask, alpha, and
+    the pass's float64 sums, which each replay adds its batch to."""
+    key: tuple                  # _cv_key of the capture
+    held: tuple                 # the keyed objects, kept alive with it
+    graph: torch.cuda.CUDAGraph
+    stream: torch.cuda.Stream   # the warm-up's and the capture's
+    noisy: torch.Tensor
+    clean: torch.Tensor
+    starts: torch.Tensor        # [CV_BATCH] int64
+    mask: torch.Tensor          # [CV_BATCH] float32
+    alpha: torch.Tensor         # [D]
+    acc: torch.Tensor           # [3] float64
+    counts: tuple = ()          # what one replay adds (read_counts' order)
+    owns_frames: bool = False   # noisy/clean are the graph's own buffers
+
+    def release(self) -> None:
+        """Destroy the captured graph (its collectives' process group is
+        going: ``shutdown_distributed``); the state captures anew."""
+        torch.cuda.synchronize(self.stream.device)
+        self.graph.reset()
+        self.key = None
+
+
+def _cv_key(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
+            hyper: TrainHyper, mesh) -> tuple[tuple, tuple]:
+    """(key, held) of a CV graph: ``hyper`` and the frames and parameters
+    it reads, by identity and address (and the mesh and its axis groups);
+    ``held`` keeps them alive beside the graph.  alpha is not in it: the
+    graph reads its own copy, refreshed at every pass."""
+    tensors = (noisy, clean, *(p for layer in param_layers(state.model)
+                               for p in layer.values()))
+    held = (state.model, *tensors)
+    if mesh is not None:
+        held = (*held, mesh, *mesh._groups.values())
+    return ((hyper, tuple(map(id, held)),
+             tuple(t.data_ptr() for t in tensors)), held)
+
+
+class CVPass:
+    """One pass of ``cv_chunk_metrics`` over padded batches, its three sums
+    accumulated in float64 on the device and read once (``sums``).
+
+    ``frames(noisy, clean)`` sets the frames of the batches that follow:
+    device tensors (a resident span) or host arrays (a chunk).
+    ``batch(starts, mask)`` takes one batch's ``[CV_BATCH]`` host arrays.
+    On a card (one device, or every rank of an NCCL mesh, whose model
+    axis' collectives the graph holds) with ``graph``, the batches replay
+    one graph kept on the state (``TrainState._cv_graph``), captured after
+    one eager batch of a pass whose frames, parameters or ``hyper``
+    changed.  The graph reads the weights by address and its own alpha,
+    copied from the state's at each pass.  A host chunk is copied into
+    the graph's frame buffers (rows rounded up to ``FRAME_PAD_BUCKET``,
+    as the reference pads a chunk), so every chunk of every pass replays
+    one graph; a longer chunk allocates larger buffers and captures again.
+    The CPU, gloo and ``graph=False`` run the batches eagerly: the
+    reference, which the replays equal bit for bit.
+    """
+
+    def __init__(self, state: TrainState, hyper: TrainHyper, device,
+                 graph: bool = True):
+        self.state, self.hyper = state, hyper
+        self.device = torch.device(device)
+        self.mesh = getattr(state.model, "mesh", None)
+        self.replays = graph and _replays(self.device, self.mesh)
+        self.acc = torch.zeros(3, dtype=torch.float64, device=self.device)
+        self.noisy = self.clean = None
+        self.own_frames = False       # noisy/clean: a graph's buffers
+
+    def _host(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def frames(self, noisy, clean) -> None:
+        self.own_frames = False
+        if isinstance(noisy, torch.Tensor):
+            self.noisy, self.clean = noisy, clean
+            return
+        if not self.replays:
+            self.noisy, self.clean = (
+                self._host(a).to(self.device, non_blocking=True)
+                for a in (noisy, clean))
+            return
+        g = self.state._cv_graph
+        rows = noisy.shape[0]
+        if (g is not None and g.owns_frames and g.key is not None
+                and g.noisy.shape[0] >= rows):
+            bufs = (g.noisy, g.clean)
+        else:
+            pad = -(-rows // FRAME_PAD_BUCKET) * FRAME_PAD_BUCKET
+            bufs = tuple(torch.zeros((pad, a.shape[1]), dtype=torch.float32,
+                                     device=self.device)
+                         for a in (noisy, clean))
+        for buf, a in zip(bufs, (noisy, clean)):
+            buf[:rows].copy_(self._host(a), non_blocking=True)
+        self.noisy, self.clean = bufs
+        self.own_frames = True
+
+    def batch(self, starts: np.ndarray, mask: np.ndarray) -> None:
+        global cv_batches_replayed
+        starts_h = self._host(starts.astype(np.int64))
+        mask_h = self._host(mask.astype(np.float32))
+        if not self.replays:
+            self.acc.add_(cv_chunk_metrics(
+                self.state.model, self.noisy, self.clean,
+                starts_h.to(self.device, non_blocking=True),
+                mask_h.to(self.device, non_blocking=True),
+                self.state.alpha, self.hyper).double())
+            return
+        key, held = _cv_key(self.state, self.noisy, self.clean, self.hyper,
+                            self.mesh)
+        g = self.state._cv_graph
+        if g is None or g.key != key:
+            self.state._cv_graph = self._capture(key, held, starts_h,
+                                                 mask_h)
+            return
+        if self.acc is not g.acc:     # this pass's first batch on g
+            g.alpha.copy_(self.state.alpha)
+            g.acc.copy_(self.acc)
+            self.acc = g.acc
+        g.starts.copy_(starts_h, non_blocking=True)
+        g.mask.copy_(mask_h, non_blocking=True)
+        g.graph.replay()
+        cv_batches_replayed += 1
+        add_counts(None if self.mesh is None else self.mesh.traffic,
+                   g.counts)
+
+    def _capture(self, key: tuple, held: tuple, starts: torch.Tensor,
+                 mask: torch.Tensor) -> _CVGraph:
+        """Run one batch eagerly on new static tensors on a side stream,
+        then capture it there (``thread_local``, as a training bunch) ->
+        the graph, whose sums now hold this pass's so far and that batch.
+        The capture runs nothing: what it added to the counters and to
+        ``Mesh.traffic`` comes back off, and each replay adds it."""
+        global cv_graphs_captured
+        traffic = None if self.mesh is None else self.mesh.traffic
+        with torch.cuda.device(self.device):
+            g = _CVGraph(
+                key, held, torch.cuda.CUDAGraph(), torch.cuda.Stream(),
+                self.noisy, self.clean,
+                starts.to(self.device, non_blocking=True),
+                mask.to(self.device, non_blocking=True),
+                self.state.alpha.clone(), self.acc.clone(),
+                owns_frames=self.own_frames)
+            current = torch.cuda.current_stream()
+            g.stream.wait_stream(current)
+            with torch.cuda.stream(g.stream):
+                self._step(g)
+            before = read_counts(traffic)
+            with torch.cuda.stream(g.stream):
+                g.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._step(g)
+                finally:
+                    g.graph.capture_end()
+            g.counts = tuple(b - a for a, b in
+                             zip(before, read_counts(traffic)))
+            add_counts(traffic, g.counts, -1)
+            current.wait_stream(g.stream)
+        cv_graphs_captured += 1
+        if traffic is not None:
+            release_on_shutdown(g)
+        self.acc = g.acc
+        return g
+
+    def _step(self, g: _CVGraph) -> None:
+        g.acc.add_(cv_chunk_metrics(self.state.model, g.noisy, g.clean,
+                                    g.starts, g.mask, g.alpha,
+                                    self.hyper).double())
+
+    def sums(self) -> list[float]:
+        """The pass's (squared error, abs error, (|err|/alpha)^beta) sums,
+        read from the device once."""
+        return self.acc.tolist()
