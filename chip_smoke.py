@@ -138,12 +138,27 @@ failing (non-zero exit) at the first fault:
    replayed and eager in turns (host clock) for the 1-4 s utterances one
    at a time and the 16 x 448 batch, the batch's device-only ms (CUDA
    events), device busy us and records per call (``torch.profiler``); a
-   capture that fails raises and keeps no graph; then the CV pass at full
+   capture that fails raises and keeps no graph; the staged decode
+   (``smooth_strength="auto"``, ``postprocess``) of the four utterances on
+   its two replayed graphs per padded shape (the frames to the noisy and
+   enhanced LPS; the synthesis), bit for bit ``graph=False``, float32 and
+   bfloat16, blend 0 and ``"auto"``, one LPS launch a call, ms per call
+   of both in turns; then the CV pass at full
    width over a three-batch CV
    set, replayed against eager over five passes with alpha and the
    weights changed before each (resident float32 and bfloat16, per chunk
    float32, and one NCCL rank with ``Mesh.traffic`` equal), bit for bit,
    one capture, ms per pass of both;
+11b. mesh-decode-graph phase (one NCCL rank in a child process, a 1x1
+   group): every form of ``Enhancer(mesh=)`` (``enhance`` of the four
+   utterances, ``enhance_lps`` of their LPS, ``enhance_batch`` and
+   ``enhance_batch_waves`` of them, ``decode_waves_tensor`` of the 16 x
+   448 batch, and the staged ``enhance``) at their padded shapes, float32
+   and bfloat16, blend 0 and ``"auto"``, replayed (the collectives inside
+   each graph) against ``graph=False`` on the same mesh: bit for bit, with
+   the eager calls' LPS launches and ``Mesh.traffic``, one capture per
+   graph kept; ``memory_reserved``; ms per call replayed and eager in
+   turns (host clock); every graph released when the group goes;
 12. bfloat16 phase (``compute_dtype=bfloat16``: bfloat16 operands, float32
    sums, everything else float32), at the same full-width model and
    fixtures; nothing falls back to float32 or to the CPU:
@@ -239,7 +254,10 @@ failing (non-zero exit) at the first fault:
    process, 2x1 and 1x2 (two cards), 4x1, 2x2 and 1x4 (four), with each
    axis' collectives per bunch.  ``bench/mesh_decode`` at 2 and 4 data
    ranks against the one-process card decode at the decoder-mesh phase's
-   bars, the int16 streams bitwise; frames/s of ``enhance_batch_waves``
+   bars, the int16 streams bitwise (its ``Enhancer(mesh=)`` replays under
+   NCCL); the mesh-decode-graph phase's ranks at 2 and 4 data ranks (each
+   rank bit for bit its own ``graph=False``, every rank's replayed outputs
+   the same); frames/s of ``enhance_batch_waves``
    over 16 utterances in one process and at each rank count (host clock);
    with four cards, the overlapped step at 4x1 (``overlap_mesh_runs``):
    every rank's replayed bunches bit for bit its eager loop's, launches
@@ -306,6 +324,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import glob
+import hashlib
 import io
 import json
 import math
@@ -1791,7 +1810,8 @@ GRAPHS_CHILD = "import sys, chip_smoke; chip_smoke.graphs_child(sys.argv[1])"
 
 
 def graphs_child(root: str) -> None:
-    """``decode_graph_phase``, ``capture_failure_check`` and ``cv_phase``
+    """``decode_graph_phase``, ``capture_failure_check``,
+    ``staged_graph_phase`` and ``cv_phase``
     in a process of their own (a failed capture stays out of the smoke's
     process; the CV phase joins a process group), on the slice phase's
     fixtures written again under ``root``; the last line holds its LPS
@@ -1803,6 +1823,7 @@ def graphs_child(root: str) -> None:
     lps_kernel.launches = 0
     decode_graph_phase(dev, fx)
     capture_failure_check(dev, fx)
+    staged_graph_phase(dev, fx)
     cv_phase(dev, root)
     torch.cuda.synchronize()
     print("graphs-launches", lps_kernel.launches)
@@ -1821,9 +1842,282 @@ def graphs_phase(root: str) -> int:
     if len(launches) != 1:
         raise SystemExit(f"decode graph and CV: {text[-3000:]}")
     for line in lines:
-        if line.startswith(("dgraph  ", "cvgraph ")):
+        if line.startswith(("dgraph  ", "sgraph  ", "cvgraph ")):
             print(line)
     return launches[0]
+
+
+# The staged decode's options in the graph phases, and the mesh-decode-
+# graph phase: NCCL ranks, each replaying every form of Enhancer(mesh=)
+# against graph=False on itself.
+STAGED_KW = {"smooth_strength": "auto", "postprocess": True}
+MGRAPH_CHILD = "import sys, chip_smoke; chip_smoke.mesh_graph_rank(sys.argv[1])"
+
+
+def decode_forms(waves: list, batch: list | None, dev) -> list:
+    """(name, programs a call, call) of the decode forms, each call ->
+    numpy arrays: ``enhance`` of each of ``waves`` (two programs a call
+    for a staged ``Enhancer``: pass ``batch=None``), and without staging
+    ``enhance_lps`` of their LPS, ``enhance_batch`` and
+    ``enhance_batch_waves`` of them and ``decode_waves_tensor`` of
+    ``batch`` (inputs on the card)."""
+    forms = [(f"enhance {len(w) // SHIFT - 1} frames", 1 if batch else 2,
+              lambda e, w=w: list(e.enhance(w))) for w in waves]
+    if batch is None:
+        return forms
+    x, n_valid, _ = pad_batch(batch, dev)
+    return forms + [
+        (f"enhance_lps {len(w) // SHIFT - 1} frames", 1,
+         lambda e, a=analysis.wav_to_lps(w, device="cpu"): [
+             e.enhance_lps(a)]) for w in waves] + [
+        ("enhance_batch", 1,
+         lambda e: [a for o in e.enhance_batch(waves) for a in o]),
+        ("enhance_batch_waves", 1, lambda e: e.enhance_batch_waves(waves)),
+        (f"decode_waves_tensor {len(batch)}x{int(n_valid.max())}", 1,
+         lambda e: [e.decode_waves_tensor(x, n_valid).cpu().numpy()])]
+
+
+def decode_counts(mesh) -> np.ndarray:
+    """LPS launches, decode replays and captures, then ``mesh``'s traffic
+    (calls and bytes per axis and op)."""
+    torch.cuda.synchronize()
+    traffic = [] if mesh is None else [n for ops in mesh.traffic.values()
+                                       for e in ops.values() for n in e]
+    return np.array([lps_kernel.launches, decode_mod.decodes_replayed,
+                     decode_mod.decode_graphs_captured, *traffic])
+
+
+def hold_replays(label: str, replayed: Enhancer, eager: Enhancer,
+                 forms: list, mesh=None, digest=None) -> tuple[int, int]:
+    """Each form: ``eager`` once, ``replayed`` twice (its first call is
+    the eager run before the capture), bit for bit, each replayed call
+    with the eager call's LPS launches and ``Mesh.traffic``; every program
+    of the replayed calls a capture or a replay, one capture per graph
+    kept.  ``digest`` (a hash) takes the replayed outputs.  -> (captures,
+    replays)."""
+    start = decode_counts(mesh)
+    for name, _, call in forms:
+        before = decode_counts(mesh)
+        want = call(eager)
+        moved = decode_counts(mesh) - before
+        for _ in range(2):
+            before = decode_counts(mesh)
+            got = call(replayed)
+            step = decode_counts(mesh) - before
+            if len(got) != len(want) or not all(
+                    np.array_equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"{label}: {name} replayed is not "
+                                 "graph=False's")
+            if step[0] != moved[0] or list(step[3:]) != list(moved[3:]):
+                raise SystemExit(f"{label}: {name}: LPS launches and "
+                                 f"traffic {step.tolist()} replayed, "
+                                 f"{moved.tolist()} eager")
+        if digest is not None:
+            for g in got:
+                digest.update(np.ascontiguousarray(g).tobytes())
+    _, replays, captures, *_ = decode_counts(mesh) - start
+    programs = 2 * sum(n for _, n, _ in forms)
+    if captures != len(replayed._graphs) or replays + captures != programs:
+        raise SystemExit(f"{label}: {captures} captures ({len(replayed._graphs)}"
+                         f" graphs), {replays} replays for {programs} "
+                         "programs run")
+    return int(captures), int(replays)
+
+
+def turns_ms(enh: dict, fns: dict) -> dict:
+    """ms per call of each of ``fns`` (name -> fn(enhancer) -> a list of
+    calls) on each ``Enhancer`` of ``enh`` (mode -> it): the median of a
+    turn's ``DGRAPH_PASSES`` passes, host clock, ``DGRAPH_TURNS`` turns,
+    the modes in alternating order -> {name: {mode: [ms per turn]}}."""
+    ms = {name: {mode: [] for mode in enh} for name in fns}
+    for turn in range(DGRAPH_TURNS):
+        order = list(enh) if turn % 2 == 0 else list(enh)[::-1]
+        for mode in order:
+            for name, fn in fns.items():
+                walls = []
+                for _ in range(DGRAPH_PASSES):
+                    for call in fn(enh[mode]):
+                        t1 = time.perf_counter()
+                        call()
+                        walls.append((time.perf_counter() - t1) * 1e3)
+                ms[name][mode].append(float(np.median(walls)))
+    return ms
+
+
+def show_ms(ms: dict) -> str:
+    return "; ".join(
+        f"{name}: replayed {', '.join(f'{v:.4f}' for v in by['replayed'])}"
+        f" ms, eager {', '.join(f'{v:.4f}' for v in by['eager'])} ms, eager "
+        f"/ replayed {min(by['eager']) / max(by['replayed']):.2f}-"
+        f"{max(by['eager']) / min(by['replayed']):.2f}x"
+        for name, by in ms.items())
+
+
+def staged_graph_phase(dev, fx: dict) -> None:
+    """The staged decode (``smooth_strength="auto"``, ``postprocess``) at
+    full width: ``enhance`` of the four utterances replayed against
+    ``graph=False``, bit for bit, float32 and bfloat16, blend 0 and
+    ``"auto"``: two programs a call (the frames to the noisy and enhanced
+    LPS; the synthesis), one LPS launch a call; then ms per call of both
+    in turns (host clock)."""
+    t0 = time.perf_counter()
+    card = card_line()
+    waves = fx["waves"]
+    forms = decode_forms(waves, None, dev)
+    for dtype in ("float32", "bfloat16"):
+        for blend in (0.0, "auto"):
+            kw = dict(STAGED_KW, device=dev, compute_dtype=dtype,
+                      blend=blend)
+            replayed = Enhancer(fx["wts"], fx["norm"], **kw)
+            eager = Enhancer(fx["wts"], fx["norm"], graph=False, **kw)
+            captures, replays = hold_replays(
+                f"staged graph {dtype} blend {blend}", replayed, eager,
+                forms)
+            print(f"sgraph  {dtype} blend {blend}: enhance of "
+                  f"{len(waves)} utterances (smooth_strength auto, "
+                  f"postprocess) x 2 bit for bit graph=False's, one LPS "
+                  f"launch a call; {captures} captures, {replays} replays")
+    enh = {mode: Enhancer(fx["wts"], fx["norm"], device=dev,
+                          graph=mode == "replayed", **STAGED_KW)
+           for mode in ("replayed", "eager")}
+    for e in enh.values():
+        for w in waves:
+            e.enhance(w)
+    ms = turns_ms(enh, {"staged enhance, 1-4 s utterances one at a time":
+                        lambda e: [lambda w=w: e.enhance(w) for w in waves]})
+    print(f"sgraph  ms per call (median of a turn, {DGRAPH_TURNS} turns, "
+          f"host clock): {show_ms(ms)}; {card}")
+    print(f"sgraph  staged phase wall time {time.perf_counter() - t0:.2f} s")
+
+
+def mesh_graph_rank(arg: str) -> None:
+    """One NCCL rank of a data mesh (the JSON object ``arg``: its
+    ``coordinator``, ``ranks``, ``rank``, the model's ``wts`` and ``norm``
+    and the ``problem``'s waves): every form of ``Enhancer(mesh=)``
+    (``decode_forms``: ``enhance`` of the utterances, ``enhance_lps``,
+    ``enhance_batch``, ``enhance_batch_waves``, ``decode_waves_tensor`` of
+    the ``DGRAPH_BATCH`` batch; the staged ``enhance``) replayed against
+    ``graph=False`` on this rank, bit for bit, float32 and bfloat16, blend
+    0 and ``"auto"``, with the eager calls' LPS launches and
+    ``Mesh.traffic`` (``hold_replays``); ``memory_reserved`` before and
+    after the float32 warm-up; ms per call replayed and eager in turns;
+    every graph released when the group goes.  Its last line is "mgraph
+    <json>": the checks, the times, a hash of the replayed outputs (equal
+    on every rank) and the LPS launches."""
+    a = json.loads(arg)
+    with np.load(a["problem"]) as z:
+        waves = np.split(z["waves"], np.cumsum(z["lengths"])[:-1])
+    rng = np.random.default_rng(SEED)
+    b, t = DGRAPH_BATCH
+    batch = [(rng.standard_normal((t + 1) * SHIFT) * 3000).astype(np.int16)
+             for _ in range(b)]
+    load_library()
+    info = initialize_distributed(a["coordinator"], a["ranks"], a["rank"],
+                                  None, "cuda")
+    dev = info["device"]
+    lps_kernel.launches = 0
+    digest = hashlib.sha256()
+    checks, kept = [], []
+    try:
+        mesh = make_mesh(device=dev)
+        for dtype in ("float32", "bfloat16"):
+            for blend in (0.0, "auto"):
+                for staged in (False, True):
+                    kw = dict(STAGED_KW if staged else {}, device=dev,
+                              mesh=mesh, compute_dtype=dtype, blend=blend)
+                    replayed = Enhancer(a["wts"], a["norm"], **kw)
+                    eager = Enhancer(a["wts"], a["norm"], graph=False, **kw)
+                    if not replayed.replays or eager.replays:
+                        raise SystemExit("mesh graph: replays "
+                                         f"{replayed.replays}, "
+                                         f"{eager.replays} with graph=False")
+                    checks.append([dtype, blend, staged, *hold_replays(
+                        f"mesh graph rank {a['rank']} {dtype} blend {blend}"
+                        f"{' staged' if staged else ''}", replayed, eager,
+                        decode_forms(waves, None if staged else batch, dev),
+                        mesh, digest)])
+                    kept += list(replayed._graphs.values())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = [torch.cuda.memory_reserved()]
+        enh = {mode: Enhancer(a["wts"], a["norm"], device=dev, mesh=mesh,
+                              graph=mode == "replayed")
+               for mode in ("replayed", "eager")}
+        staged = {mode: Enhancer(a["wts"], a["norm"], device=dev, mesh=mesh,
+                                 graph=mode == "replayed", **STAGED_KW)
+                  for mode in ("replayed", "eager")}
+        for mode in ("replayed", "eager"):
+            for w in waves:
+                enh[mode].enhance(w)
+                staged[mode].enhance(w)
+            enh[mode].enhance_batch_waves(batch)
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+        kept += list(enh["replayed"]._graphs.values())
+        kept += list(staged["replayed"]._graphs.values())
+        ms = turns_ms(enh, {
+            "enhance, 1-4 s utterances one at a time":
+                lambda e: [lambda w=w: e.enhance(w) for w in waves],
+            f"enhance_batch_waves {b}x{t}":
+                lambda e: [lambda: e.enhance_batch_waves(batch)]})
+        ms.update(turns_ms(staged, {
+            "staged enhance, one at a time":
+                lambda e: [lambda w=w: e.enhance(w) for w in waves]}))
+        traffic = {axis: ops for axis, ops in mesh.traffic.items()
+                   if any(n for e in ops.values() for n in e)}
+    finally:
+        shutdown_distributed()
+    if not kept or any(g.key is not None for g in kept):
+        raise SystemExit("mesh graph: a graph outlived its group")
+    torch.cuda.synchronize()
+    print("mgraph " + json.dumps({
+        "rank": a["rank"], "ranks": a["ranks"], "checks": checks,
+        "graphs_released": len(kept), "ms": ms,
+        "reserved_mib": [r / 2**20 for r in reserved], "traffic": traffic,
+        "digest": digest.hexdigest(), "lps_launches": lps_kernel.launches}))
+
+
+def mesh_graph_runs(root: str, fx: dict, sizes: list) -> int:
+    """``mesh_graph_rank`` at each rank count of ``sizes`` over NCCL, one
+    rank per card, one cluster at a time: every rank's checks held and its
+    replayed outputs the same as every other rank's.  -> the LPS kernel's
+    launches."""
+    os.makedirs(root, exist_ok=True)
+    _, path = mesh_problem(root, fx)
+    card = card_line()
+    launches = 0
+    for n in sizes:
+        name = f"mgraph{n}"
+        texts = run_on_cards([(name, n, lambda port, k, n=n: [
+            "-u", "-c", MGRAPH_CHILD, json.dumps({
+                "coordinator": f"127.0.0.1:{port}", "ranks": n, "rank": k,
+                "wts": fx["wts"], "norm": fx["norm"], "problem": path})])],
+            root)[name]
+        recs = [json.loads(line[len("mgraph "):]) for text in texts
+                for line in text.splitlines() if line.startswith("mgraph ")]
+        if (len(recs) != n or len({r["digest"] for r in recs}) != 1
+                or len({r["lps_launches"] for r in recs}) != 1):
+            raise SystemExit(f"{name}: the ranks' records differ or are "
+                             f"missing: {texts}")
+        for r in recs:
+            launches += r["lps_launches"]
+            checks = ", ".join(
+                f"{dtype} blend {blend}{' staged' if staged else ''} "
+                f"{captures} captures {replays} replays"
+                for dtype, blend, staged, captures, replays in r["checks"])
+            print(f"mgraph  {n} NCCL rank{'s' * (n > 1)}, rank {r['rank']}: "
+                  f"every form of Enhancer(mesh=) bit for bit graph=False's "
+                  f"on this rank, LPS launches and Mesh.traffic equal "
+                  f"({checks}); {r['graphs_released']} graphs released at "
+                  f"shutdown; replayed outputs the same on every rank; "
+                  f"{r['lps_launches']} LPS launches; memory_reserved "
+                  f"{', '.join(f'{m:.1f}' for m in r['reserved_mib'])} MiB "
+                  f"(before, after the replayed and the eager warm-up); "
+                  f"traffic {r['traffic']}")
+            print(f"mgraph  {n} NCCL rank{'s' * (n > 1)}, rank {r['rank']}, "
+                  f"ms per call (median of a turn, {DGRAPH_TURNS} turns, "
+                  f"host clock): {show_ms(r['ms'])}; {card}")
+    return launches
 
 
 def train_rate(dev, tfx: dict, init_wts: str,
@@ -4091,7 +4385,8 @@ def cards_phase(root: str, fx: dict, train: dict, decoded: dict) -> dict:
             f"dp_epoch {data}x{model}{' ' + dtype[0] if dtype else ''}")
     for n in CARD_DECODE:
         needs.setdefault(n, []).append(
-            f"mesh_decode and the decoders' rates at {n} ranks")
+            f"mesh_decode, the decoders' rates and the replayed mesh "
+            f"decoders against graph=False at {n} ranks")
     needs.setdefault(CARD_OVERLAP, []).append(
         f"the overlapped step {CARD_OVERLAP}x1 replayed against eager")
     left = [f"{', '.join(runs)} (each needs {n} cards)"
@@ -4106,6 +4401,9 @@ def cards_phase(root: str, fx: dict, train: dict, decoded: dict) -> dict:
             launches[key] += n
         launches["lps"] = card_decode_runs(root, fx, decoded["one"],
                                            decoded["launches"])
+        launches["lps"] += mesh_graph_runs(
+            os.path.join(root, "mgraph"), fx,
+            [n for n in CARD_DECODE if n <= n_cards])
     if n_cards >= CARD_OVERLAP:
         for key, n in overlap_mesh_runs(root, train, CARD_OVERLAP,
                                         ("float32",), True, "cards").items():
@@ -4798,6 +5096,7 @@ def main() -> int:
                               train["quiet"])
         stream_launches, fp32_hops = stream_phase(root, fx)
         graphs_lps = graphs_phase(os.path.join(root, "graphs"))
+        mgraph_lps = mesh_graph_runs(os.path.join(root, "mgraph"), fx, [1])
         bf16 = bf16_phase(dev, os.path.join(root, "bf16"), fx, train,
                           fp32_hops)
         dp = dp_phase(dev, os.path.join(root, "dp"), train)
@@ -4810,7 +5109,9 @@ def main() -> int:
         benches = benches_phase(os.path.join(root, "benches"))
 
     # Launches: over the decode, streaming (graph replays included),
-    # decode-graph (each replay counted once), pipeline, bfloat16, decoder-mesh, cross-card, example and bench
+    # decode-graph and staged (each replay counted once), mesh-decode-graph
+    # (each rank's own count), pipeline, bfloat16, decoder-mesh, cross-card,
+    # example and bench
     # paths; over the training, pipeline, bfloat16, overlapped-step (at
     # mesh=None and the one-process references), cross-card (dp_epoch's one
     # process), example and bench paths; the split kernels' over the
@@ -4833,7 +5134,8 @@ def main() -> int:
         "source": "tpu_se_torch/csrc/lps_kernel.cu",
         "replaces": "tpu_se/ops/lps_kernel.py:61",
         "launches": (launches + stream_launches + pipe["lps_launches"]
-                     + graphs_lps + bf16["lps_launches"] + mesh_lps
+                     + graphs_lps + mgraph_lps + bf16["lps_launches"]
+                     + mesh_lps
                      + cards["lps"] + examples["lps"] + benches["lps"]),
         "max_abs_err": kern["max_abs_err"],
         **kern["times"][rows[-1]], "library_ms": None}, {

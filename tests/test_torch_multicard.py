@@ -30,10 +30,16 @@ outlives it), rank k on card k.  Fixtures and checks are
   replay, and a traced window of replayed bunches holding NCCL and GEMM
   kernels;
 - ``bench/mesh_decode`` on two cards and on four: every form of
-  ``Enhancer(mesh=)`` within 1 int16 LSB and the enhanced LPS within rtol
-  1e-5, atol 1e-5 of the one-process decode, the int16 streams of
-  ``StreamingEnhancer(mesh=)`` bit for bit, each rank's LPS launches the
-  one process's.
+  ``Enhancer(mesh=)`` (replayed under NCCL) within 1 int16 LSB and the
+  enhanced LPS within rtol 1e-5, atol 1e-5 of the one-process decode, the
+  int16 streams of ``StreamingEnhancer(mesh=)`` bit for bit, each rank's
+  LPS launches the one process's;
+- ``chip_smoke.mesh_graph_runs`` on two cards and on four: on every rank
+  every form of ``Enhancer(mesh=)`` (the staged path too), float32 and
+  bfloat16, blend 0 and ``"auto"``, replayed bit for bit the same rank's
+  ``graph=False`` calls, with their LPS launches and ``Mesh.traffic``;
+  every rank's replayed outputs the same; every graph released when the
+  group goes.
 
 Run them on a machine with several cards with
 
@@ -204,6 +210,18 @@ def test_mesh_decode_matches_one_process(tmp_path, n):
     assert lsb <= 1
     assert bitwise["stream"]
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4], ids=["two_ranks", "four_ranks"])
+def test_replayed_mesh_decoders_equal_graph_false(tmp_path, n):
+    """Each rank of ``chip_smoke.mesh_graph_runs`` holds every form of
+    ``Enhancer(mesh=)`` replayed to its own ``graph=False`` calls, bit for
+    bit; the parent holds the ranks' replayed outputs to each other."""
+    _need_cards(n)
+    c = _smoke()
+    fx = c.write_fixtures(str(tmp_path))
+    assert c.mesh_graph_runs(str(tmp_path / "mgraph"), fx, [n]) > 0
 
 
 @pytest.mark.cuda

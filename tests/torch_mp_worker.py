@@ -43,6 +43,10 @@ Modes:
 - ``decode``: ``tpu_se_torch.bench.mesh_decode.decode_all`` on
   ``<dir>/decode.npz`` (written by the test) with a data mesh over the
   ranks; every rank saves what it returned (``decode.<rank>.npz``).
+- ``padded``: ``decode_padded`` on ``<dir>/padded.npz`` (written by
+  ``write_padded_problem``) with a data mesh over the ranks: every form of
+  ``Enhancer(mesh=)`` at its padded shapes, and the staged path; every
+  rank saves what it returned (``padded.<rank>.npz``).
 - ``train <args...>``: the ``tpu_se_torch train`` CLI as this rank, hard
   killed (``os._exit(7)``: no cleanup, as SIGKILL) after
   ``TPU_SE_TORCH_CRASH_AFTER_CHUNKS`` ``train_chunk`` dispatches when that
@@ -152,6 +156,94 @@ def run_decode_cluster(where, n_ranks: int) -> list[dict]:
     out = []
     for rank in range(n_ranks):
         with np.load(os.path.join(where, f"decode.{rank}.npz")) as z:
+            out.append(dict(z))
+    return out
+
+
+# The frame counts of the padded problem's waves (at 2 ranks, 1 and 10
+# frames leave rank 1's block of the 64-frame axis wholly past the
+# utterance; 63, 64, 65 lie about a bucket edge), its batches (the first n
+# waves) and the staged path's options (by names without an underscore) and waves.
+PADDED_FRAMES = (1, 10, 63, 64, 65)
+PADDED_BATCHES = (1, 3, 4, 5)
+STAGED_OPTIONS = {
+    "smooth": {"smooth": True},
+    "smoothauto": {"smooth_strength": "auto"},
+    "postprocess": {"postprocess": True},
+    "allauto": {"smooth_strength": "auto", "postprocess": True,
+                 "blend": "auto"},
+}
+STAGED_WAVES = (2, 3, 4)            # 63, 64 and 65 frames
+
+
+def write_padded_problem(where) -> dict:
+    """A (1799, 32, 32, 257) model, its ``.norm`` and one seeded int16
+    wave per frame count of ``PADDED_FRAMES`` (37 samples past the last
+    frame), written to ``where`` (``m.wts``, ``m.norm``, ``padded.npz``)
+    -> the waves."""
+    from tpu_se_torch.io import write_norm, write_wts
+    from tpu_se_torch.models import init_params
+
+    write_wts(os.path.join(where, "m.wts"),
+              init_params(21, (1799, 32, 32, 257)))
+    rng = np.random.default_rng(21)
+    write_norm(os.path.join(where, "m.norm"),
+               rng.normal(size=257).astype(np.float32),
+               (0.5 + rng.random(257)).astype(np.float32))
+    waves = [(rng.normal(size=(t + 1) * 256 + 37) * 3000).astype(np.int16)
+             for t in PADDED_FRAMES]
+    np.savez(os.path.join(where, "padded.npz"), waves=np.concatenate(waves),
+             lengths=np.array([len(w) for w in waves]))
+    return waves
+
+
+def decode_padded(wts: str, norm: str, waves: list, mesh, device) -> dict:
+    """Every entry point of ``Enhancer(mesh=)`` on ``waves``, blend 0 and
+    ``"auto"`` (``enhance``, ``enhance_lps`` of the port's LPS,
+    ``enhance_batch`` and ``enhance_batch_waves`` of the first n waves for
+    n in ``PADDED_BATCHES``), and ``enhance`` with each of
+    ``STAGED_OPTIONS`` on ``STAGED_WAVES`` -> numpy arrays by name."""
+    from tpu_se_torch.dsp.analysis import wav_to_lps
+    from tpu_se_torch.infer import Enhancer
+
+    out = {}
+    for blend in (0.0, "auto"):
+        tag = "auto" if blend else "plain"
+        enh = Enhancer(wts, norm, device=device, blend=blend, mesh=mesh)
+        for i, w in enumerate(waves):
+            wave, _, lps = enh.enhance(w)
+            out[f"enhance_{tag}_{i}_wave"] = wave
+            out[f"enhance_{tag}_{i}_lps"] = lps
+            out[f"lps_{tag}_{i}"] = enh.enhance_lps(
+                wav_to_lps(w, device="cpu"))
+        for n in PADDED_BATCHES:
+            for j, (wave, _, lps) in enumerate(enh.enhance_batch(waves[:n])):
+                out[f"batch_{tag}_{n}_{j}_wave"] = wave
+                out[f"batch_{tag}_{n}_{j}_lps"] = lps
+            for j, wave in enumerate(enh.enhance_batch_waves(waves[:n])):
+                out[f"fast_{tag}_{n}_{j}_wave"] = wave
+    for name, kw in STAGED_OPTIONS.items():
+        enh = Enhancer(wts, norm, device=device, mesh=mesh, **kw)
+        for i in STAGED_WAVES:
+            wave, _, lps = enh.enhance(waves[i])
+            out[f"staged_{name}_{i}_wave"] = wave
+            out[f"staged_{name}_{i}_lps"] = lps
+    return out
+
+
+def run_padded_cluster(where, n_ranks: int) -> list[dict]:
+    """``padded`` mode over ``n_ranks`` gloo ranks -> what each returned."""
+    from tpu_se_torch.parallel.mesh import free_port
+
+    port = free_port()
+    codes, logs = run_ranks(
+        lambda k: [os.path.abspath(__file__), "padded", str(k), str(n_ranks),
+                   str(port), str(where)], n_ranks, timeout=240)
+    if codes != [0] * n_ranks:
+        raise RuntimeError("\n".join(logs))
+    out = []
+    for rank in range(n_ranks):
+        with np.load(os.path.join(where, f"padded.{rank}.npz")) as z:
             out.append(dict(z))
     return out
 
@@ -337,6 +429,15 @@ def run_decode(rank, out_dir):
     np.savez(os.path.join(out_dir, f"decode.{rank}.npz"), **got)
 
 
+def run_padded(rank, out_dir):
+    with np.load(os.path.join(out_dir, "padded.npz")) as z:
+        waves = np.split(z["waves"], np.cumsum(z["lengths"])[:-1])
+    got = decode_padded(os.path.join(out_dir, "m.wts"),
+                        os.path.join(out_dir, "m.norm"), waves,
+                        make_mesh(device="cpu"), "cpu")
+    np.savez(os.path.join(out_dir, f"padded.{rank}.npz"), **got)
+
+
 def run_axes(rank, out_dir):
     mesh = make_mesh(None, 2, device="cpu")
     mine = torch.full((3,), float(rank))
@@ -423,6 +524,8 @@ def main() -> int:
             run_tp(rank, n_ranks, out_dir, *rest)
         elif mode == "decode":
             run_decode(rank, out_dir)
+        elif mode == "padded":
+            run_padded(rank, out_dir)
         elif mode == "overlap":
             run_overlap(rank, n_ranks, out_dir)
         else:

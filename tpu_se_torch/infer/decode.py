@@ -21,35 +21,46 @@ reference pads ``enhance`` and the batches to 256 frames
 all four: at 256 a 1 s utterance (~62 frames) would run 4x its products,
 and 7.2 s (448 frames = 7 x 64) would run as 512 (+14 %).
 
-On a card (``mesh=None``, ``graph=True``) each padded shape is one
-captured ``torch.cuda.CUDAGraph``, replayed: ``jax.jit`` of
-``_decode_device``, ``_decode_device_batch``, ``_decode_device_batch_waves``
-and ``_enhance_lps`` becomes a graph per (program, padded shape, compute
-dtype, blend), captured after one eager run of its first call on a side
-stream (which builds the cuFFT plans and cuBLAS handles that a capture
-cannot).  The graphs of one ``Enhancer`` share one memory pool and are
-kept up to ``MAX_DECODE_GRAPHS``, least recently used out.  A call copies
-its inputs into the graph's static tensors (zeros outside its shape) and
-reads the static outputs before the next replay.  The weights (and their
-bfloat16 copy) are frozen, so the graphs read them by address.  The CPU,
-a mesh and ``graph=False`` run the same programs eagerly at the same
-padded shapes.  A replay adds its capture's LPS launches to
-``lps_kernel.launches`` (one per call, as eager).
+On a card (``graph=True``, without a mesh or under an NCCL one) each
+padded shape is one captured ``torch.cuda.CUDAGraph``, replayed:
+``jax.jit`` of ``_decode_device``, ``_decode_device_batch``,
+``_decode_device_batch_waves`` and ``_enhance_lps`` (under their
+shardings) becomes a graph per (program, padded shape, compute dtype,
+blend), captured after one eager run of its first call on a side stream
+(which builds the cuFFT plans, the cuBLAS handles and the NCCL
+communicators that a capture cannot; ``utils/graphs.py``).  The graphs of
+one ``Enhancer`` share one memory pool and are kept up to
+``MAX_DECODE_GRAPHS``, least recently used out.  A call copies its inputs
+into the graph's static tensors (zeros outside its shape) and reads the
+static outputs before the next replay.  The weights (and their bfloat16
+copy) are frozen, so the graphs read them by address.  The CPU, gloo and
+``graph=False`` run the same programs eagerly at the same padded shapes.
+A replay adds its capture's LPS launches to ``lps_kernel.launches`` (one
+per call, as eager) and its collectives to ``Mesh.traffic``.
+
+With smoothing or postprocessing (``smooth``, ``smooth_strength``,
+``postprocess``) ``enhance`` is staged as the reference stages it: one
+program from the frames to the noisy and the enhanced LPS, the options in
+numpy on the host, and one program of the synthesis, both at the padded
+T and each its own graph.
 
 Under a mesh (``Enhancer(mesh=)``, one process per device) the weights are
 whole on every rank and only the ``data`` axis splits the work, as the
 reference shards its frames or its batch over ``data`` and replicates over
-``model``: a batch is padded to a multiple of ``data`` and each data index
-decodes its block of utterances; one utterance's frames are split in
-contiguous blocks, each with the ``context // 2`` frames on either side
-that its splice reads (edge-replicated only at the utterance's ends).  The
-blocks are all-gathered, so every rank returns what one device returns and
-the OLA sees the whole utterance.
+``model``: both pad buckets are rounded up to a multiple of ``data``
+(``tpu_se``'s ``_pad_bucket``), a batch's data index decodes its block of
+rows, and one utterance's padded frame axis is split in contiguous blocks,
+each with the ``context // 2`` frames on either side that its splice reads
+(clamped at the last valid frame on the device, from ``n_valid``; a block
+wholly past it reads inside its window, and its rows are dropped).  The
+blocks are all-gathered inside the program, so every rank returns what one
+device returns and the OLA sees the whole utterance.  Every rank makes the
+same calls, so every rank captures, replays and evicts the same graphs;
+each holds its collectives and is named to ``release_on_shutdown``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 from collections import OrderedDict
@@ -63,10 +74,12 @@ from tpu_se_torch.dsp.analysis import (
     rate_config,
 )
 from tpu_se_torch.dsp.metrics import segsnr_lsd_pair
-from tpu_se_torch.dsp.synthesis import _synth_and_ola, reconstruct
+from tpu_se_torch.dsp.synthesis import _synth_and_ola
 from tpu_se_torch.io import read_norm, read_wav, read_wts, write_wav
 from tpu_se_torch.models.ffn import FFN, params_from_numpy
 from tpu_se_torch.ops import lps_kernel
+from tpu_se_torch.parallel.distributed import release_on_shutdown
+from tpu_se_torch.utils import graphs
 from tpu_se_torch.utils.device import resolve_compute_dtype, resolve_device
 
 # Pad buckets (tpu_se/infer/decode.py:34, its Enhancer.BATCH_BUCKET): the
@@ -80,6 +93,8 @@ MAX_DECODE_GRAPHS = 16
 # over every Enhancer of the process.
 decodes_replayed = 0
 decode_graphs_captured = 0
+# The launch counters a decode program advances (``graphs.read_counts``).
+DECODE_COUNTERS = ((lps_kernel, "launches"),)
 
 # Adaptive-blend map (tpu_se/infer/decode.py): lam = LMAX *
 # exp(-suppression_dB / TAU), clipped to [0, 0.9], from the utterance's
@@ -155,7 +170,11 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
     idx = (steps[:, None]
            + torch.arange(-half, half + 1, device=lps.device)[None, :])
     last = (n_valid - 1).clamp(min=0)[:, None, None]
-    idx = torch.minimum(idx.clamp(min=0)[None], last) - first    # [B, T, C]
+    idx = torch.minimum(idx.clamp(min=0)[None], last)             # [B, T, C]
+    if block is not None:
+        # A block wholly past the utterance's end reads the first frame of
+        # its window: its rows are invalid and dropped.
+        idx = idx.clamp(min=first) - first
     rows = torch.arange(b, device=lps.device)[:, None, None]
     n = hi - lo
     x = normed[rows, idx].reshape(b * n, context * d)
@@ -163,8 +182,9 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
                 cast_weights=cast_weights).reshape(b, n, d) / inv_std + mean
     if block is not None:
         # The noisy LPS of the output frames (past the utterance's end, of
-        # its last frame: those rows are invalid and dropped).
-        lps = lps[rows[..., 0], torch.minimum(steps[None], last[..., 0])
+        # a frame of the window: those rows are invalid and dropped).
+        lps = lps[rows[..., 0],
+                  torch.minimum(steps[None], last[..., 0]).clamp(min=first)
                   - first]
     if blend == "auto":
         valid = (steps[None, :] < n_valid[:, None]).to(lps.dtype)[..., None]
@@ -181,21 +201,55 @@ def _enhance_lps(model: FFN, lps: torch.Tensor, mean: torch.Tensor,
     return enh
 
 
+def _frame_block(t: int, context: int, mesh) -> tuple[int, int, int, int]:
+    """A data index's share of a T-frame axis (T a multiple of the data
+    axis' size): (first, lo, hi, last) -- its output frames [lo, hi) and
+    the frames [first, last) its splice reads, inside [0, T)."""
+    half = (context - 1) // 2
+    per = t // mesh.data
+    lo = mesh.data_rank * per
+    return max(lo - half, 0), lo, lo + per, min(lo + per + half, t)
+
+
+def _enhance_split(model: FFN, lps: torch.Tensor, t: int, mesh,
+                   mean: torch.Tensor, inv_std: torch.Tensor,
+                   n_valid: torch.Tensor, context: int, blend,
+                   compute_dtype: torch.dtype, cast_weights: list | None
+                   ) -> torch.Tensor:
+    """``_enhance_lps`` of a T-frame axis split over ``mesh``'s data axis:
+    ``lps`` holds this rank's window of frames (``_frame_block``), the
+    blocks are all-gathered -> the whole [B, T, D]."""
+    first, lo, hi, _ = _frame_block(t, context, mesh)
+    out = _enhance_lps(model, lps, mean, inv_std, n_valid, context, blend,
+                       compute_dtype, cast_weights, (first, lo, hi), mesh)
+    return mesh.all_gather(out, 1, "data")
+
+
 def _decode_core(model: FFN, frames: torch.Tensor, mean: torch.Tensor,
                  inv_std: torch.Tensor, n_valid: torch.Tensor,
                  basis: torch.Tensor, window: torch.Tensor, frame_shift: int,
                  context: int = 7, blend=0.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 cast_weights: list | None = None):
+                 cast_weights: list | None = None, mesh=None):
     """The whole decode on one device: noisy frames [B, T, len] ->
     (OLA waveform [B, S], de-windowed recon frames [B, T, len],
     enhanced LPS [B, T, bins]).  ``basis`` and ``window`` are the
-    analysis matrix and Hamming window, already on the device."""
+    analysis matrix and Hamming window, already on the device.  With
+    ``mesh`` the frame axis (T a multiple of its data axis) is split: this
+    rank's window of frames through the LPS and the network, the blocks
+    all-gathered, then the synthesis of the whole utterance."""
     b, t, length = frames.shape
-    lps = lps_from_frames(frames.reshape(b * t, length),
-                          basis=basis).reshape(b, t, -1)
-    enh = _enhance_lps(model, lps, mean, inv_std, n_valid, context, blend,
-                       compute_dtype, cast_weights)
+    if mesh is None:
+        lps = lps_from_frames(frames.reshape(b * t, length),
+                              basis=basis).reshape(b, t, -1)
+        enh = _enhance_lps(model, lps, mean, inv_std, n_valid, context,
+                           blend, compute_dtype, cast_weights)
+    else:
+        first, _, _, last = _frame_block(t, context, mesh)
+        lps = lps_from_frames(frames[:, first:last].reshape(-1, length),
+                              basis=basis).reshape(b, last - first, -1)
+        enh = _enhance_split(model, lps, t, mesh, mean, inv_std, n_valid,
+                             context, blend, compute_dtype, cast_weights)
     valid = (torch.arange(t, device=frames.device)[None, :]
              < n_valid[:, None])
     wave, recon = _synth_and_ola(enh, frames, valid, frame_shift,
@@ -302,13 +356,16 @@ def _pad_to(src: torch.Tensor, shape: tuple, device) -> torch.Tensor:
 
 
 @dataclass(eq=False)
-class _DecodeGraph:
-    """One decode program captured at one padded shape: its static inputs
-    and outputs, and the LPS kernel launches that one replay makes."""
+class _DecodeGraph(graphs.Releasable):
+    """One decode program captured at one padded shape: its key, its
+    static inputs and outputs, and what one replay adds to the LPS kernel's
+    launches and the mesh's ``Mesh.traffic`` (``graphs.read_counts``)."""
+    key: tuple | None
     graph: torch.cuda.CUDAGraph
+    stream: torch.cuda.Stream
     inputs: tuple
     outputs: tuple
-    launches: int
+    counts: tuple
 
 
 class Enhancer:
@@ -330,10 +387,11 @@ class Enhancer:
     docstring); every call returns, on every rank, what one device's
     returns.
 
-    ``graph``: on a card without a mesh, each padded shape's program is
-    captured once and replayed (the module's docstring); a capture that
-    fails raises.  ``graph=False`` runs the same programs eagerly at the
-    same padded shapes, the reference the replays are held to.
+    ``graph``: on a card, without a mesh or under an NCCL one, each padded
+    shape's program is captured once and replayed (the module's
+    docstring); a capture that fails raises.  ``graph=False`` runs the
+    same programs eagerly at the same padded shapes, the reference the
+    replays are held to; so do gloo and the CPU.
     """
 
     def __init__(self, wts_path, norm_path, device="cuda", context: int = 7,
@@ -368,8 +426,7 @@ class Enhancer:
                                                       smooth)
         self.smooth = self.smooth_strength != 0.0
         self.blend = _check_blend(blend)
-        self.replays = (graph and mesh is None
-                        and self.device.type == "cuda")
+        self.replays = graph and graphs.replays(self.device, mesh)
         # The captured programs by key, least recently used first; their
         # shared memory pool and the stream they were captured on.
         self._graphs: OrderedDict = OrderedDict()
@@ -379,16 +436,37 @@ class Enhancer:
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    def _bucket(self, bucket: int) -> int:
+        """A pad bucket, rounded up to a multiple of the data axis under a
+        mesh (``tpu_se``'s ``_pad_bucket``)."""
+        return bucket if self.mesh is None else _roundup(bucket,
+                                                         self.mesh.data)
+
     def _padded_shape(self, b: int, t: int, batch: bool) -> tuple[int, int]:
         """(B_pad, T_pad) of a call with ``b`` rows of ``t`` frames: T up
         to a multiple of ``DECODE_PAD_BUCKET``; with ``batch``, B up to a
-        multiple of ``BATCH_BUCKET`` (under a mesh, rounded up to a
-        multiple of the data axis, as the reference rounds it)."""
+        multiple of ``BATCH_BUCKET``; under a mesh both buckets rounded up
+        to a multiple of the data axis, as the reference rounds them."""
+        t_pad = _roundup(t, self._bucket(DECODE_PAD_BUCKET))
         if not batch:
-            return b, _roundup(t, DECODE_PAD_BUCKET)
-        bucket = (BATCH_BUCKET if self.mesh is None
-                  else _roundup(BATCH_BUCKET, self.mesh.data))
-        return _roundup(b, bucket), _roundup(t, DECODE_PAD_BUCKET)
+            return b, t_pad
+        return _roundup(b, self._bucket(BATCH_BUCKET)), t_pad
+
+    def _my_rows(self, b_pad: int, *tensors: torch.Tensor) -> list:
+        """Under a mesh, this data index's block of the ``b_pad`` rows of a
+        batch (fewer, or none, where the tensors hold fewer rows: the
+        program's padding fills them)."""
+        per = b_pad // self.mesh.data
+        lo = self.mesh.data_rank * per
+        return [t[lo:lo + per] for t in tensors]
+
+    def _gathered(self, fn):
+        """``fn``, a program of this rank's rows, with its outputs
+        all-gathered over the data axis: every rank's rows, in order."""
+        def run(*inputs):
+            return tuple(self.mesh.all_gather(o, 0, "data")
+                         for o in fn(*inputs))
+        return run
 
     @torch.inference_mode()
     def _run(self, kind: str, fn, inputs: tuple, shapes: tuple) -> tuple:
@@ -398,70 +476,62 @@ class Enhancer:
         graph of (``kind``, ``shapes``, compute dtype, blend), captured
         at its first call.  A replay's outputs are the graph's static
         tensors: the next replay of any graph of this ``Enhancer`` may
-        overwrite them, so the caller reads them before its next call."""
+        overwrite them, so the caller reads them before its next call.
+        The key holds nothing a rank alone knows, so under a mesh every
+        rank captures, replays and evicts the same keys in the same
+        order."""
         global decodes_replayed
         if not self.replays:
             return fn(*(_pad_to(x, s, self.device)
                         for x, s in zip(inputs, shapes)))
         key = (kind, shapes, self.compute_dtype, self.blend)
         g = self._graphs.get(key)
-        if g is None:
+        if g is None or g.key is None:
             return self._capture(key, fn, inputs, shapes)
         self._graphs.move_to_end(key)
         for static, x in zip(g.inputs, inputs):
             _fill(static, x)
         g.graph.replay()
         decodes_replayed += 1
-        lps_kernel.launches += g.launches
+        graphs.add_counts(DECODE_COUNTERS, self._traffic(), g.counts)
         return g.outputs
+
+    def _traffic(self) -> dict | None:
+        return None if self.mesh is None else self.mesh.traffic
 
     def _capture(self, key: tuple, fn, inputs: tuple, shapes: tuple
                  ) -> tuple:
         """Run ``fn`` eagerly on new static inputs on a side stream, then
-        capture it there into this ``Enhancer``'s memory pool -> the eager
-        run's outputs (the call that captures is that run).  The capture
-        launches nothing: its LPS launches are kept for the replays and
-        taken off the counter.  A capture that fails raises its error."""
+        capture it there into this ``Enhancer``'s memory pool
+        (``utils.graphs.capture``) -> the eager run's outputs (the call
+        that captures is that run; under a mesh it starts the NCCL
+        communicators).  The capture launches and sends nothing: its LPS
+        launches and collectives are kept for the replays and taken off
+        the counters.  A capture that fails raises its error.  A graph
+        captured under a mesh holds its collectives, so it is named to
+        ``release_on_shutdown``."""
         global decode_graphs_captured
         with torch.cuda.device(self.device):
             statics = tuple(torch.empty(s, dtype=x.dtype, device=self.device)
                             for x, s in zip(inputs, shapes))
             for static, x in zip(statics, inputs):
                 _fill(static, x)
-            current = torch.cuda.current_stream()
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
-            side = self._stream
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                outs = fn(*statics)
-            for out in outs:              # read on the current stream
-                out.record_stream(current)
             while len(self._graphs) >= MAX_DECODE_GRAPHS:
                 self._graphs.popitem(last=False)
-            graph = torch.cuda.CUDAGraph()
-            before = lps_kernel.launches
-            try:
-                with torch.cuda.stream(side):
-                    graph.capture_begin(pool=self._pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        static_outs = fn(*statics)
-                    except BaseException:
-                        # Raise the capture's own error, not the one that
-                        # ending an invalidated capture adds to it.
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-            finally:
-                launches = lps_kernel.launches - before
-                lps_kernel.launches = before
-            current.wait_stream(side)
+            graph, outs, static_outs, counts = graphs.capture(
+                lambda: fn(*statics), self._stream, pool=self._pool,
+                counts=(DECODE_COUNTERS, self._traffic()))
+            for out in outs:              # read on the current stream
+                out.record_stream(torch.cuda.current_stream())
         if self._pool is None:
             self._pool = graph.pool()
-        self._graphs[key] = _DecodeGraph(graph, statics, static_outs,
-                                         launches)
+        g = _DecodeGraph(key, graph, self._stream, statics, static_outs,
+                         counts)
+        self._graphs[key] = g
+        if self.mesh is not None:
+            release_on_shutdown(g)
         decode_graphs_captured += 1
         return outs
 
@@ -470,6 +540,14 @@ class Enhancer:
                             n_valid, self.basis, self.window,
                             self.frame_shift, self.context, self.blend,
                             self.compute_dtype, self.cast_weights)
+
+    def _block_core(self, frames: torch.Tensor, n_valid: torch.Tensor
+                    ) -> tuple:
+        """``_core`` with the frame axis split over the data axis."""
+        return _decode_core(self.model, frames, self.mean, self.inv_std,
+                            n_valid, self.basis, self.window,
+                            self.frame_shift, self.context, self.blend,
+                            self.compute_dtype, self.cast_weights, self.mesh)
 
     def _waves_core(self, waves: torch.Tensor, n_valid: torch.Tensor
                     ) -> tuple[torch.Tensor]:
@@ -484,68 +562,79 @@ class Enhancer:
 
     def _lps_core(self, lps: torch.Tensor, n_valid: torch.Tensor
                   ) -> tuple[torch.Tensor]:
-        return (_enhance_lps(self.model, lps, self.mean, self.inv_std,
-                             n_valid, self.context, self.blend,
-                             self.compute_dtype, self.cast_weights),)
+        """Noisy LPS [B, T, bins] -> (enhanced LPS,); under a mesh the
+        frame axis is split over the data axis."""
+        if self.mesh is None:
+            return (_enhance_lps(self.model, lps, self.mean, self.inv_std,
+                                 n_valid, self.context, self.blend,
+                                 self.compute_dtype, self.cast_weights),)
+        first, _, _, last = _frame_block(lps.shape[1], self.context,
+                                         self.mesh)
+        return (_enhance_split(self.model, lps[:, first:last], lps.shape[1],
+                               self.mesh, self.mean, self.inv_std, n_valid,
+                               self.context, self.blend, self.compute_dtype,
+                               self.cast_weights),)
+
+    def _staged_core(self, frames: torch.Tensor, n_valid: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The staged path's first program: frames [B, T, len] -> (noisy
+        LPS, enhanced LPS), each [B, T, bins].  Under a mesh every rank
+        computes the whole noisy LPS, and the network its block of it."""
+        b, t, length = frames.shape
+        lps = lps_from_frames(frames.reshape(b * t, length),
+                              basis=self.basis).reshape(b, t, -1)
+        return lps, self._lps_core(lps, n_valid)[0]
+
+    def _synth_core(self, lps: torch.Tensor, frames: torch.Tensor,
+                    n_valid: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """The staged path's second program: enhanced LPS [B, T, bins] and
+        noisy frames [B, T, len] -> (OLA waveform [B, S], recon frames
+        [B, T, len]); rows past ``n_valid`` add nothing."""
+        valid = (torch.arange(frames.shape[1], device=frames.device)[None, :]
+                 < n_valid[:, None])
+        return _synth_and_ola(lps, frames, valid, self.frame_shift,
+                              window=self.window)
 
     def _decode(self, frames: torch.Tensor, n_valid: torch.Tensor):
         """The fused decode: frames [B, T, len] and valid counts [B] (on
         the device or the host) -> (OLA waves [B, S], recon frames [B, T,
-        len], enhanced LPS [B, T, bins]) for this B and T.  Without a mesh
-        it runs at the padded shape (``_padded_shape``; one row stays one)
-        and cuts the outputs back: on a card they are views of a replayed
-        graph's static outputs, overwritten by this ``Enhancer``'s next
-        decode.  Under a mesh: this rank's rows as they are, eagerly."""
+        len], enhanced LPS [B, T, bins]) for this B and T.  It runs at the
+        padded shape (``_padded_shape``; one row stays one) and cuts the
+        outputs back: on a card they are views of a replayed graph's static
+        outputs, overwritten by this ``Enhancer``'s next decode.  Under a
+        mesh one row's frames are split over the data axis, and several
+        rows are (each data index decoding its block of rows)."""
         b, t, length = frames.shape
-        if self.mesh is not None:
-            return self._core(frames.to(self.device),
-                              n_valid.to(self.device))
         b_pad, t_pad = self._padded_shape(b, t, batch=b > 1)
-        wave, recon, enh = self._run(
-            "frames", self._core, (frames, n_valid),
-            ((b_pad, t_pad, length), (b_pad,)))
+        if self.mesh is None:
+            outs = self._run("frames", self._core, (frames, n_valid),
+                             ((b_pad, t_pad, length), (b_pad,)))
+        elif b == 1:
+            outs = self._run("block", self._block_core, (frames, n_valid),
+                             ((1, t_pad, length), (1,)))
+        else:
+            per = b_pad // self.mesh.data
+            outs = self._run("rows", self._gathered(self._core),
+                             self._my_rows(b_pad, frames, n_valid),
+                             ((per, t_pad, length), (per,)))
+        wave, recon, enh = outs
         cut = wave.shape[1] - (t_pad - t) * self.frame_shift
         return wave[:b, :cut], recon[:b, :t], enh[:b, :t]
-
-    def _frame_block(self, t: int) -> tuple[int, int, int, int]:
-        """This rank's frames [lo, hi) of a T-frame utterance (a multiple
-        of the data axis' size past T) and the frames [w_lo, w_hi) its
-        splice reads (at least one, so a block past the end reads the
-        last)."""
-        half = (self.context - 1) // 2
-        per = -(-t // self.mesh.data)
-        lo = self.mesh.data_rank * per
-        hi = lo + per
-        w_lo = min(max(lo - half, 0), t - 1)
-        return lo, hi, w_lo, max(min(hi + half, t), w_lo + 1)
-
-    def _enhance_block(self, lps: torch.Tensor, t: int,
-                       block: tuple) -> torch.Tensor:
-        """A rank's block of a T-frame utterance -> the whole enhanced LPS
-        [T, bins], all-gathered over the data axis."""
-        lo, hi, w_lo, _ = block
-        out = _enhance_lps(self.model, lps[None], self.mean, self.inv_std,
-                           torch.tensor([t], device=self.device),
-                           self.context, self.blend, self.compute_dtype,
-                           self.cast_weights, (w_lo, lo, hi), self.mesh)
-        return self.mesh.all_gather(out[0], 0, "data")[:t]
 
     @torch.inference_mode()
     def enhance_lps(self, lps: np.ndarray) -> np.ndarray:
         """Enhanced (de-normalized) LPS [T, bins] from noisy LPS [T, bins],
-        run at T padded to a multiple of ``DECODE_PAD_BUCKET``."""
+        run at T padded to a multiple of ``DECODE_PAD_BUCKET`` (of the data
+        axis too under a mesh, whose data indices split the frames)."""
         t, bins = lps.shape
         if t == 0:
             return np.zeros((0, bins), np.float32)
-        if self.mesh is not None:
-            block = self._frame_block(t)
-            return self._enhance_block(self._tensor(lps[block[2]:block[3]]),
-                                       t, block).cpu().numpy()
         (out,) = self._run(
             "lps", self._lps_core,
             (torch.from_numpy(np.ascontiguousarray(lps, np.float32))[None],
              torch.tensor([t])),
-            ((1, _roundup(t, DECODE_PAD_BUCKET), bins), (1,)))
+            ((1, self._padded_shape(1, t, batch=False)[1], bins), (1,)))
         return out[0, :t].cpu().numpy()
 
     @torch.inference_mode()
@@ -554,18 +643,36 @@ class Enhancer:
         """noisy int16 wave -> (enhanced int16 wave, recon frames, enh LPS).
 
         Without smoothing or postprocessing the whole decode is one device
-        pass; with either, the staged path runs them on the host between
-        the forward pass and synthesis.
+        program; with either, the staged path runs two (``_staged``), and
+        them on the host between the forward pass and synthesis.
         """
         if not (self.smooth or self.postprocess):
-            if self.mesh is not None:
-                return self._decode_utterance(noisy_wave)
             return self._decode_waves([noisy_wave], batch=False)[0]
+        return self._staged(noisy_wave)
+
+    def _staged(self, noisy_wave: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``enhance`` with smoothing or postprocessing, as ``tpu_se`` runs
+        it: one program from the frames to the noisy and the enhanced LPS,
+        the options in numpy on the host, then one program of the
+        synthesis, both at the padded T; the synthesis' rows past the
+        utterance are ``LOG_FLOOR`` LPS rows of zero frames, masked out
+        (``tpu_se/dsp/synthesis.py:reconstruct``)."""
         frames = frame_signal(noisy_wave, self.frame_length,
                               self.frame_shift)
-        lps = lps_from_frames(self._tensor(frames),
-                              basis=self.basis).cpu().numpy()
-        enh_lps = self.enhance_lps(lps)
+        t, length = frames.shape
+        bins = length // 2 + 1
+        if t == 0:
+            return (np.zeros(length - self.frame_shift, np.int16),
+                    np.zeros((0, length), np.float32),
+                    np.zeros((0, bins), np.float32))
+        t_pad = self._padded_shape(1, t, batch=False)[1]
+        frames_t = torch.from_numpy(frames)[None]
+        n_valid = torch.tensor([t])
+        lps, enh = self._run("staged", self._staged_core,
+                             (frames_t, n_valid),
+                             ((1, t_pad, length), (1,)))
+        lps, enh_lps = lps[0, :t].cpu().numpy(), enh[0, :t].cpu().numpy()
         if self.smooth:
             power = _exp_floored(enh_lps)
             s = (_smooth_auto_strength(lps)
@@ -575,9 +682,14 @@ class Enhancer:
             enh_lps = np.log(mixed).astype(np.float32)
         if self.postprocess:
             enh_lps = postprocess_lps(enh_lps, lps)
-        wave, recon = reconstruct(enh_lps, noisy_wave, self.sample_rate,
-                                  device=self.device)
-        return wave, recon, enh_lps
+        lps_p = np.full((1, t_pad, bins), LOG_FLOOR, np.float32)
+        lps_p[0, :t] = enh_lps
+        wave, recon = self._run("synth", self._synth_core,
+                                (torch.from_numpy(lps_p), frames_t, n_valid),
+                                ((1, t_pad, bins), (1, t_pad, length), (1,)))
+        n = t * self.frame_shift + length - self.frame_shift
+        return (np.trunc(wave[0, :n].cpu().numpy()).astype(np.int16),
+                recon[0, :t].cpu().numpy(), enh_lps)
 
     @torch.inference_mode()
     def enhance_batch(self, waves: list
@@ -598,44 +710,6 @@ class Enhancer:
                 np.zeros((0, self.frame_length), np.float32),
                 np.zeros((0, self.frame_length // 2 + 1), np.float32))
 
-    def _decode_utterance(self, wave: np.ndarray):
-        """``enhance``'s fused decode under a mesh: this rank's block of the
-        frames through the LPS and the network, the blocks all-gathered,
-        then the synthesis of the whole utterance."""
-        frames = self._tensor(frame_signal(wave, self.frame_length,
-                                           self.frame_shift))
-        t = frames.shape[0]
-        if t == 0:
-            return self._empty()
-        block = self._frame_block(t)
-        lps = lps_from_frames(frames[block[2]:block[3]], basis=self.basis)
-        enh = self._enhance_block(lps, t, block)
-        out, recon = _synth_and_ola(enh, frames,
-                                    torch.ones(t, device=self.device),
-                                    self.frame_shift, window=self.window)
-        n = t * self.frame_shift + self.frame_length - self.frame_shift
-        return (np.trunc(out.cpu().numpy()[:n]).astype(np.int16),
-                recon.cpu().numpy(), enh.cpu().numpy())
-
-    def _my_rows(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
-        """Under a mesh, this data index's block of rows of each tensor,
-        after zero rows pad the batch to a multiple of the data axis."""
-        if self.mesh is None:
-            return list(tensors)
-        b = tensors[0].shape[0]
-        per = -(-b // self.mesh.data)
-        lo = self.mesh.data_rank * per
-        return [torch.cat([t, t.new_zeros((per * self.mesh.data - b,)
-                                          + t.shape[1:])])[lo:lo + per]
-                for t in tensors]
-
-    def _all_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
-        """The inverse of ``_my_rows``: the blocks of the data axis joined,
-        cut back to the batch's ``b`` rows."""
-        if self.mesh is None:
-            return t
-        return self.mesh.all_gather(t, 0, "data")[:b]
-
     def _decode_waves(self, waves: list, batch: bool
                       ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """The fused decode of B waves at their padded shape
@@ -654,10 +728,8 @@ class Enhancer:
             frames_b[i, : ts[i]] = f
         n_valid = np.zeros(b_pad, dtype=np.int64)
         n_valid[: len(ts)] = ts
-        outs = self._decode(*self._my_rows(torch.from_numpy(frames_b),
-                                           torch.from_numpy(n_valid)))
-        wave_b, recon_b, enh_b = (self._all_rows(o, len(waves))
-                                  for o in outs)
+        wave_b, recon_b, enh_b = self._decode(torch.from_numpy(frames_b),
+                                              torch.from_numpy(n_valid))
         wave_b = wave_b.cpu().numpy()
         recon_b, enh_b = recon_b.cpu().numpy(), enh_b.cpu().numpy()
         tail = self.frame_length - self.frame_shift
@@ -674,23 +746,26 @@ class Enhancer:
 
         Framing uses frame_length == 2 * shift (the ETSI 50 %-overlap
         config, ``Wav2LogSpec_be.c:43,49``): each frame joins two adjacent
-        shift-sized blocks.  Without a mesh the program runs at the padded
-        shape (``_padded_shape``), replayed on a card, and the result is a
-        view of the graph's static output there, overwritten by the next
-        decode.  Under a mesh each data index decodes its block of the
-        batch and every rank returns the whole batch.
+        shift-sized blocks.  The program runs at the padded shape
+        (``_padded_shape``; without a mesh one row stays one, under a mesh
+        B is padded to the batch bucket and each data index decodes its
+        block of rows, the blocks all-gathered) and is replayed on a card,
+        where the result is a view of the graph's static output,
+        overwritten by this ``Enhancer``'s next decode.
         """
         b = waves.shape[0]
-        if self.mesh is not None:
-            waves, n_valid = self._my_rows(waves, n_valid)
-            (wave,) = self._waves_core(waves.to(self.device),
-                                       n_valid.to(self.device))
-            return self._all_rows(wave, b)
         shift = self.frame_shift
         t = waves.shape[1] // shift - 1
-        b_pad, t_pad = self._padded_shape(b, t, batch=b > 1)
-        (wave,) = self._run("waves", self._waves_core, (waves, n_valid),
-                            ((b_pad, (t_pad + 1) * shift), (b_pad,)))
+        b_pad, t_pad = self._padded_shape(
+            b, t, batch=b > 1 or self.mesh is not None)
+        if self.mesh is None:
+            (wave,) = self._run("waves", self._waves_core, (waves, n_valid),
+                                ((b_pad, (t_pad + 1) * shift), (b_pad,)))
+        else:
+            per = b_pad // self.mesh.data
+            (wave,) = self._run("waves", self._gathered(self._waves_core),
+                                self._my_rows(b_pad, waves, n_valid),
+                                ((per, (t_pad + 1) * shift), (per,)))
         return wave[:b, : wave.shape[1] - (t_pad - t) * shift]
 
     def enhance_batch_waves(self, waves: list) -> list[np.ndarray]:

@@ -60,6 +60,7 @@ from tpu_se_torch.infer.decode import (
 from tpu_se_torch.io import read_norm, read_wts
 from tpu_se_torch.models.ffn import FFN, params_from_numpy
 from tpu_se_torch.ops.lps_kernel import POWER_FLOOR
+from tpu_se_torch.utils import graphs
 from tpu_se_torch.utils.device import resolve_compute_dtype, resolve_device
 
 
@@ -446,17 +447,10 @@ class StreamingEnhancer:
     @torch.inference_mode()
     def _capture(self, fn) -> torch.cuda.CUDAGraph:
         """Warm ``fn`` up on a side stream (it builds the kernel library and
-        the FFT plans, which a capture cannot), then capture it."""
+        the FFT plans, which a capture cannot), then capture it there
+        (``utils.graphs.capture``)."""
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                fn()
-        return graph
+            return graphs.capture(fn, torch.cuda.Stream())[0]
 
     def _run_step(self) -> None:
         global hops_replayed

@@ -115,6 +115,7 @@ from tpu_se_torch.ops import ggd_kernel, sgd_kernel
 from tpu_se_torch.parallel.distributed import release_on_shutdown
 from tpu_se_torch.parallel.tensor import TensorParallelFFN
 from tpu_se_torch.train.optim import sgd_momentum_init, sgd_momentum_update
+from tpu_se_torch.utils import graphs
 from tpu_se_torch.utils.device import resolve_compute_dtype
 
 
@@ -177,26 +178,18 @@ def read_counts(traffic: dict | None) -> tuple[int, ...]:
     """The counters a bunch advances, as one tuple: ``KERNEL_COUNTERS``,
     then ``traffic``'s (``Mesh.traffic``, or None without a mesh) calls
     and bytes per axis and op, in its order."""
-    return (*(getattr(module, name) for module, name in KERNEL_COUNTERS),
-            *(n for ops in (traffic or {}).values()
-              for entry in ops.values() for n in entry))
+    return graphs.read_counts(KERNEL_COUNTERS, traffic)
 
 
 def add_counts(traffic: dict | None, delta: tuple, times: int = 1) -> None:
     """Add ``times`` x ``delta`` (ordered as ``read_counts``) to the
     counters: ``times=-1`` takes a capture's counts back, ``times=n`` adds
     n replays'."""
-    values = iter(delta)
-    for (module, name), d in zip(KERNEL_COUNTERS, values):
-        setattr(module, name, getattr(module, name) + times * d)
-    for ops in (traffic or {}).values():
-        for entry in ops.values():
-            for i in range(len(entry)):
-                entry[i] += times * next(values)
+    graphs.add_counts(KERNEL_COUNTERS, traffic, delta, times)
 
 
 @dataclass(eq=False)
-class _BunchGraph:
+class _BunchGraph(graphs.Releasable):
     """One bunch captured on a card, and what it was captured for."""
     key: tuple                  # _graph_key of the capture
     held: tuple                 # the keyed objects, kept alive with the graph
@@ -209,14 +202,6 @@ class _BunchGraph:
     # The generator the graph's masks are drawn from (registered with it),
     # or None for a graph that draws none.
     generator: torch.Generator | None = None
-
-    def release(self) -> None:
-        """Destroy the captured graph (its collectives' process group is
-        going: ``shutdown_distributed``); the state captures anew if it
-        trains again."""
-        torch.cuda.synchronize(self.stream.device)
-        self.graph.reset()
-        self.key = None
 
 
 @dataclass
@@ -352,10 +337,10 @@ def run_chunk(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
 
 
 def _replays(device: torch.device, mesh) -> bool:
-    """Whether ``run_chunk(graph=True)`` replays a captured bunch: on a
-    card, without a mesh or under an NCCL one.  Dropout masks do not
-    matter: the graph draws them too."""
-    return device.type == "cuda" and (mesh is None or mesh.backend == "nccl")
+    """Whether ``run_chunk(graph=True)`` replays a captured bunch
+    (``utils.graphs.replays``).  Dropout masks do not matter: the graph
+    draws them too."""
+    return graphs.replays(device, mesh)
 
 
 def _graph_key(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
@@ -436,10 +421,10 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key,
     the eager bunch's alpha).  Runs with ``first``'s card current.
     ``key()`` gives the graph's (key, held), read after the warm-up,
     which allocates a mesh's flat gradient buffer; ``traffic`` is the
-    mesh's ``Mesh.traffic`` (None without one).  The capture's mode is
-    ``thread_local`` (module docstring).  With a ``generator`` the warm-up
-    draws its masks from it, and the graph draws from a generator of its
-    own, registered with it before the capture.
+    mesh's ``Mesh.traffic`` (None without one).  The capture is
+    ``utils.graphs.capture`` (module docstring).  With a ``generator`` the
+    warm-up draws its masks from it, and the graph draws from a generator
+    of its own, registered with it before the capture.
 
     A state's next graph is captured into its ``old`` one's memory pool
     and on its stream, while the old graph still holds the pool, and the
@@ -451,33 +436,22 @@ def _capture(first: torch.Tensor, lr: float, bunch_step, key,
     if old is not None and (old.key is None
                             or old.stream.device != first.device):
         old = None
-    current = torch.cuda.current_stream()
     starts = torch.empty(first.shape, dtype=torch.int64, device=first.device)
     rate = torch.empty((), dtype=torch.float32, device=first.device)
     side = torch.cuda.Stream() if old is None else old.stream
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        alpha = bunch_step(first, lr, generator)
-    # Read by the caller on the current stream, freed after it.
-    alpha.record_stream(current)
-    graph_key, held = key()
     graph = torch.cuda.CUDAGraph()
     masks = None
     if generator is not None:
         masks = torch.Generator(device=first.device)
         graph.register_generator_state(masks)
-    before = read_counts(traffic)
-    with torch.cuda.stream(side):
-        graph.capture_begin(
-            pool=None if old is None else old.graph.pool(),
-            capture_error_mode="thread_local")
-        try:
-            static_alpha = bunch_step(starts, rate, masks)
-        finally:
-            graph.capture_end()
-    counts = tuple(b - a for a, b in zip(before, read_counts(traffic)))
-    add_counts(traffic, counts, -1)
-    current.wait_stream(side)
+    graph, alpha, static_alpha, counts = graphs.capture(
+        lambda: bunch_step(starts, rate, masks), side,
+        warm=lambda: bunch_step(first, lr, generator),
+        pool=None if old is None else old.graph.pool(), graph=graph,
+        counts=(KERNEL_COUNTERS, traffic))
+    # Read by the caller on the current stream, freed after it.
+    alpha.record_stream(torch.cuda.current_stream())
+    graph_key, held = key()
     graphs_captured += 1
     captured = _BunchGraph(graph_key, held, graph, side, starts, rate,
                            static_alpha, counts, masks)
@@ -525,7 +499,7 @@ cv_graphs_captured = 0
 
 
 @dataclass(eq=False)
-class _CVGraph:
+class _CVGraph(graphs.Releasable):
     """One CV batch captured on a card, and the static tensors it reads and
     writes: the frames (the caller's resident span, or buffers of its own
     that a chunk is copied into), the batch's starts and mask, alpha, and
@@ -542,13 +516,6 @@ class _CVGraph:
     acc: torch.Tensor           # [3] float64
     counts: tuple = ()          # what one replay adds (read_counts' order)
     owns_frames: bool = False   # noisy/clean are the graph's own buffers
-
-    def release(self) -> None:
-        """Destroy the captured graph (its collectives' process group is
-        going: ``shutdown_distributed``); the state captures anew."""
-        torch.cuda.synchronize(self.stream.device)
-        self.graph.reset()
-        self.key = None
 
 
 def _cv_key(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor,
@@ -657,7 +624,7 @@ class CVPass:
     def _capture(self, key: tuple, held: tuple, starts: torch.Tensor,
                  mask: torch.Tensor) -> _CVGraph:
         """Run one batch eagerly on new static tensors on a side stream,
-        then capture it there (``thread_local``, as a training bunch) ->
+        then capture it there (``utils.graphs.capture``) ->
         the graph, whose sums now hold this pass's so far and that batch.
         The capture runs nothing: what it added to the counters and to
         ``Mesh.traffic`` comes back off, and each replay adds it."""
@@ -671,21 +638,9 @@ class CVPass:
                 mask.to(self.device, non_blocking=True),
                 self.state.alpha.clone(), self.acc.clone(),
                 owns_frames=self.own_frames)
-            current = torch.cuda.current_stream()
-            g.stream.wait_stream(current)
-            with torch.cuda.stream(g.stream):
-                self._step(g)
-            before = read_counts(traffic)
-            with torch.cuda.stream(g.stream):
-                g.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self._step(g)
-                finally:
-                    g.graph.capture_end()
-            g.counts = tuple(b - a for a, b in
-                             zip(before, read_counts(traffic)))
-            add_counts(traffic, g.counts, -1)
-            current.wait_stream(g.stream)
+            *_, g.counts = graphs.capture(
+                lambda: self._step(g), g.stream, graph=g.graph,
+                counts=(KERNEL_COUNTERS, traffic))
         cv_graphs_captured += 1
         if traffic is not None:
             release_on_shutdown(g)
